@@ -1,0 +1,88 @@
+"""Top-level ``solve`` — the ``eigen_solver`` entry point.
+
+Counterpart of the standard-problem branch of
+``eigenkernel_tpu/solvers/api.py``: dispatch the ``-s`` name, place the
+matrix on the device, run the pipeline, slice the requested eigenpairs.
+There is no padding and no mesh: every op here takes any n, and one
+device runs the solve.  Generalized problems, ``dtype='mixed'`` and the
+SEP cores other than the one-stage one raise ``NotImplementedError`` with
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
+                                              set_matmul_precision_highest)
+from eigenkernel_tpu_torch.core.types import EigenPairs
+from eigenkernel_tpu_torch.obs.events import EventLog
+from eigenkernel_tpu_torch.solvers import pipelines as pl
+from eigenkernel_tpu_torch.solvers.registry import (AUTO_NAMES, get_spec,
+                                                    resolve_auto)
+
+_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
+    if dtype is None:
+        if isinstance(a, torch.Tensor) and a.dtype in _DTYPES.values():
+            return a.dtype
+        if isinstance(a, np.ndarray) and a.dtype == np.float32:
+            return torch.float32
+        return torch.float64
+    if dtype == "mixed":
+        raise NotImplementedError(
+            "dtype='mixed' (float32 pipeline + float64 refinement): "
+            "ROADMAP slice 5")
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _DTYPES[np.dtype(dtype).name]
+
+
+def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
+          n_vec: Optional[int] = None, block_size: int = 0,
+          log: Optional[EventLog] = None, dtype: Any = None,
+          device: Any = None) -> EigenPairs:
+    """Solve the standard problem ``A x = lambda x``.
+
+    ``a`` is a dense symmetric matrix (numpy array or torch tensor); it is
+    copied to ``device`` (default: ``a``'s own device for a tensor, else
+    ``cuda``) in ``dtype`` (default: ``a``'s float type, else float64).
+    Returns the ``n_vec`` lowest eigenvalues ascending and their
+    eigenvectors in columns.
+    """
+    if b is not None:
+        raise NotImplementedError("generalized problems: ROADMAP slice 2")
+    n = int(a.shape[0])
+    if solver in AUTO_NAMES:
+        solver = resolve_auto(solver, n, generalized=False,
+                              selecting=n_vec is not None and n_vec != n,
+                              on_mesh=False, backend="cuda")
+    spec = get_spec(solver)
+    if spec.generalized:
+        raise ValueError(f"solver '{solver}' is not for standard problems")
+    if not spec.selecting and n_vec is not None and n_vec != n:
+        raise ValueError(
+            f"solver '{solver}' does not support partial computation")
+    if a.shape[0] != a.shape[1]:
+        raise ValueError("matrix dimension mismatch")
+    n_vec = n if n_vec is None else int(n_vec)
+    if not 0 < n_vec <= n:
+        raise ValueError(f"n_vec={n_vec} out of range for n={n}")
+    torch_dtype = _as_dtype(dtype, a)
+    if device is None:
+        device = a.device if isinstance(a, torch.Tensor) else "cuda"
+    device = torch.device(device)
+
+    set_matmul_precision_highest()
+    a_dev = torch.as_tensor(a).to(device=device, dtype=torch_dtype)
+    panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
+    ctx = pl.SolverContext(device=device, block_size=panel, log=log)
+    w, z = pl.standard_pipeline(ctx, a_dev, n_vec, spec.core)
+    return EigenPairs(values=w[:n_vec], vectors=z[:, :n_vec],
+                      meta={"solver": solver, "panel": panel,
+                            "device": str(device)})
