@@ -19,9 +19,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    orthogonality and eigenvalues against ``torch.linalg.eigvalsh`` must
    meet their bars, and both kernels must have been launched.
 5. Full spectrum: ``EK_TRIDIAG=bisect -s scalapack`` at n = 2048, float64.
+6. The two-stage kernels against their plain versions on the card: the
+   bulge chase (B3) on the band of a random symmetric n = 4096 matrix at
+   the default bandwidth 64 (d, e, the reflectors, the spectrum, and
+   ``Q2 tridiag(d, e) Q2^T`` against the band), and both chase
+   back-transforms (B4, B5) on its reflectors with z of 500 columns,
+   float64 and float32.
+7. Two-stage selecting path at its real size: the CLI runs
+   ``EK_SELECT_CORE=two_stage -s scalapack_select`` for the 500 lowest
+   eigenpairs of an ELSES-style n = 16384 matrix, float64 and float32,
+   against one float64 ``torch.linalg.eigvalsh`` of the matrix; B3 and B4
+   must have been launched.  B4 is then held against its plain version on
+   the operands the path gave it (recorded during the run), and, in
+   float64, B3 against its plain version on the band of that matrix.
+8. Full spectrum through the two-stage core: ``EK_TRIDIAG=bisect -s
+   eigensx`` at n = 4096, float64 (B4 at k = n, then held against its plain
+   version on the path's operands).
+9. The per-sweep back-transform on the path: ``EK_BACKTRANSFORM=pallas``
+   with ``-s eigensx`` at n = 2048, float64; B5 must have been launched,
+   and is then held against its plain version on the path's operands.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every main path starts with every launch count at 0 and reads the counts
+right after; the kernel comparisons of phases 3, 6 and those after each
+path do not count.  The second-to-last line is a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,6 +61,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_KERNEL, K_KERNEL = 4096, 500
 N_MAIN, K_MAIN = 4096, 500
 N_FULL = 2048
+N_TWO, K_TWO = 16384, 500      # the ROADMAP's selecting target
+N_SX = 4096                    # eigensx, full spectrum
+N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +100,56 @@ def elses_like(n: int, seed: int, band: int = 64, long_frac: float = 0.01):
     cols.append(key % n)
     vals.append(rng.standard_normal(key.size) * 0.05)
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for the duration of the block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def capture(module, name):
+    """Record the positional arguments of every call of ``module.name``
+    made inside the block; the calls themselves run unchanged."""
+    calls = []
+    fn = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        calls.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def reset_launches():
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, sturm,
+                                           tridiag_solve, wf_bt)
+
+    for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform):
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, sturm,
+                                           tridiag_solve, wf_bt)
+
+    return {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES,
+            "chase": chase.LAUNCHES, "wf_bt": wf_bt.LAUNCHES,
+            "chase_bt": backtransform.LAUNCHES}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -191,11 +265,11 @@ def _number(text: str, label: str) -> float:
     return float(m.group(1))
 
 
-def check_run(workdir, out, a_dev, k, dtype_name, resid_bar, orth_bar,
+def check_run(workdir, out, ref, k, dtype_name, resid_bar, orth_bar,
               ev_rel_bar):
-    """Residual, orthogonality and eigenvalues of one CLI run."""
+    """Residual, orthogonality and eigenvalues (against ``ref``, the
+    ascending eigenvalues of the matrix) of one CLI run."""
     import numpy as np
-    import torch
 
     resid = _number(out, "residual norm (max):")
     orth = _number(out, "orthogonality criterion:")
@@ -206,7 +280,6 @@ def check_run(workdir, out, a_dev, k, dtype_name, resid_bar, orth_bar,
     ev = np.loadtxt(os.path.join(workdir, "eigenvalues.dat"), ndmin=2)
     check(ev.shape == (k, 2) and bool(np.isfinite(ev).all()),
           f"{dtype_name} eigenvalues.dat holds {k} finite values")
-    ref = torch.linalg.eigvalsh(a_dev).cpu().numpy()
     norm2 = float(np.abs(ref).max())
     err = float(np.abs(ev[:, 1] - ref[:k]).max())
     check(err <= ev_rel_bar * norm2,
@@ -222,20 +295,9 @@ def check_run(workdir, out, a_dev, k, dtype_name, resid_bar, orth_bar,
 
 def phase_main(dev, tmp):
     """Phase 4: the CLI's selecting path, float64 and float32."""
-    import numpy as np
-    import torch
-
-    from eigenkernel_tpu_torch.core.types import SparseMatrix
-    from eigenkernel_tpu_torch.io.matrix_market import write_matrix
-    from eigenkernel_tpu_torch.ops import sturm, tridiag_solve
-
-    rows, cols, vals = elses_like(N_MAIN, seed=1)
-    mat = SparseMatrix(N_MAIN, rows, cols, vals)
-    path = os.path.join(tmp, "A4096.mtx")
-    write_matrix(path, mat)
-    print(f"matrix: n={N_MAIN}, {mat.nnz} lower-triangle entries")
-    a_dev = torch.tensor(mat.to_dense(), device=dev)
-    sturm.LAUNCHES = tridiag_solve.LAUNCHES = 0
+    mat, path = write_elses(tmp, N_MAIN, seed=1)
+    ref = reference_eigvalsh(mat, dev)
+    reset_launches()
     for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
                              ("float32", (1e-5, 1e-3, 1e-4))):
         work = os.path.join(tmp, f"main_{dtype_name}")
@@ -243,39 +305,340 @@ def phase_main(dev, tmp):
         out = run_cli(work, ["-s", "scalapack_select", "-n", str(K_MAIN),
                              "-c", str(K_MAIN), "-t", f"1,{K_MAIN}",
                              "--dtype", dtype_name, path])
-        check_run(work, out, a_dev, K_MAIN, dtype_name, *bars)
-    launches = {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES}
+        check_run(work, out, ref, K_MAIN, dtype_name, *bars)
+    launches = read_launches()
     print(f"launches on the main path: {launches}")
     check(launches["sturm"] > 0 and launches["solve"] > 0,
           "both kernels launched on the main path")
     return launches
 
 
-def phase_full(dev, tmp):
-    """Phase 5: full spectrum through the bisection core."""
+def reference_eigvalsh(mat, dev):
+    """Ascending eigenvalues of ``mat`` by one float64
+    ``torch.linalg.eigvalsh`` on the card."""
     import torch
 
+    a_dev = torch.tensor(mat.to_dense(), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = torch.linalg.eigvalsh(a_dev).cpu().numpy()
+    print(f"reference eigvalsh n={mat.size}: {time.time() - t0:.1f} s")
+    del a_dev
+    torch.cuda.empty_cache()
+    return ref
+
+
+def write_elses(tmp, n, seed):
     from eigenkernel_tpu_torch.core.types import SparseMatrix
     from eigenkernel_tpu_torch.io.matrix_market import write_matrix
-    from eigenkernel_tpu_torch.ops import sturm, tridiag_solve
 
-    rows, cols, vals = elses_like(N_FULL, seed=2)
-    mat = SparseMatrix(N_FULL, rows, cols, vals)
-    path = os.path.join(tmp, "A2048.mtx")
+    rows, cols, vals = elses_like(n, seed=seed)
+    mat = SparseMatrix(n, rows, cols, vals)
+    path = os.path.join(tmp, f"A{n}_{seed}.mtx")
     write_matrix(path, mat)
-    a_dev = torch.tensor(mat.to_dense(), device=dev)
+    print(f"matrix: n={n}, {mat.nnz} lower-triangle entries, seed {seed}")
+    return mat, path
+
+
+def phase_full(dev, tmp):
+    """Phase 5: full spectrum through the bisection core."""
+    mat, path = write_elses(tmp, N_FULL, seed=2)
+    ref = reference_eigvalsh(mat, dev)
     work = os.path.join(tmp, "full")
     os.makedirs(work)
-    before = (sturm.LAUNCHES, tridiag_solve.LAUNCHES)
-    os.environ["EK_TRIDIAG"] = "bisect"
-    try:
+    reset_launches()
+    with env(EK_TRIDIAG="bisect"):
         out = run_cli(work, ["-s", "scalapack", "-c", "-1",
                              "-t", f"1,{N_FULL}", path])
-    finally:
-        del os.environ["EK_TRIDIAG"]
-    check(sturm.LAUNCHES > before[0] and tridiag_solve.LAUNCHES > before[1],
+    launches = read_launches()
+    check(launches["sturm"] > 0 and launches["solve"] > 0,
           "both kernels launched on the full-spectrum path")
-    check_run(work, out, a_dev, N_FULL, "float64 full", 1e-12, 1e-10, 1e-10)
+    check_run(work, out, ref, N_FULL, "float64 full", 1e-12, 1e-10, 1e-10)
+    return mat, path, ref
+
+
+def first_divergence(res, plain, bar=1e-3):
+    """Where the kernel's and the plain version's reflectors part: the
+    first chase step (4c + t for sweep c, position t) at which one of them
+    differs by more than ``bar``, or None.  ``1 - tau = alpha / beta`` with
+    ``|beta| = ||x||``, so ``|1 - tau|`` there is the pivot's share
+    ``|alpha| / ||x||`` of its column; ``flip_residual``, the largest
+    ``|v + v_plain|`` over the tail, is small where the two pivots took
+    opposite signs (``v_tail = x_tail / (alpha - beta)``)."""
+    import torch
+
+    diff = torch.maximum((res.HV - plain.HV).abs().amax(2),
+                         (res.HT - plain.HT).abs())              # (n, T)
+    n, T = diff.shape
+    step = (4 * torch.arange(n, device=diff.device)[:, None]
+            + torch.arange(T, device=diff.device)[None, :])
+    bad = diff > bar
+    if not bool(bad.any()):
+        return None
+    s0 = int(step[bad].min())
+    c, t = (int(x) for x in torch.nonzero(bad & (step == s0))[0])
+    before = diff[step < s0]
+    return {"step": s0, "sweep": c, "position": t,
+            "max_diff_before": float(before.max()) if before.numel() else 0.0,
+            "diff": float(diff[c, t]), "tau": float(res.HT[c, t]),
+            "tau_plain": float(plain.HT[c, t]),
+            "pivot_share": abs(1.0 - float(plain.HT[c, t])),
+            "flip_residual": float((res.HV[c, t, 1:]
+                                    + plain.HV[c, t, 1:]).abs().max())}
+
+
+def compare_chase(band_m, bw, lam_ref, tag, reps, recon):
+    """B3 against its plain version on ``band_m``: d and e, the reflectors
+    (float64), the spectrum against ``lam_ref`` (ascending eigenvalues of
+    the band) and each other, and with ``recon`` ``Q2 tridiag(d, e) Q2^T``
+    against the band (Q2 from the kernel's reflectors by the plain
+    back-transform).  Returns the kernel result and the numbers."""
+    import numpy as np
+    import scipy.linalg as sla
+    import torch
+
+    from eigenkernel_tpu_torch.ops import bulge, chase
+
+    n = band_m.shape[0]
+    f64 = band_m.dtype == torch.float64
+    res = chase.band_to_tridiag(band_m, bw)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: chase.band_to_tridiag(band_m, bw), reps)
+    t0 = time.time()
+    plain = chase.band_to_tridiag_plain(band_m, bw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    scale = float(np.abs(lam_ref).max())
+    err = max(float((res.d - plain.d).abs().max()),
+              float((res.e - plain.e).abs().max()))
+    hv_err = float((res.HV - plain.HV).abs().max())
+    ht_err = float((res.HT - plain.HT).abs().max())
+
+    def spectrum(r):
+        return sla.eigvalsh_tridiagonal(r.d.double().cpu().numpy(),
+                                        r.e.double().cpu().numpy())
+
+    lam_k = spectrum(res)
+    sp_ref = float(np.abs(lam_k - lam_ref).max()) / scale
+    sp_plain = float(np.abs(lam_k - spectrum(plain)).max()) / scale
+    print(f"band_chase {tag}: n={n} bw={bw}, {chase.n_steps(n, bw)} steps, "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, max |d, e - plain| "
+          f"{err:.3e}, |HV - plain| {hv_err:.3e}, |HT - plain| {ht_err:.3e}, "
+          f"spectrum vs eigvalsh {sp_ref:.3e}, vs plain {sp_plain:.3e} "
+          f"(relative to ||band||_2 {scale:.4g})")
+    div = first_divergence(res, plain)
+    print(f"  reflectors first part by > 1e-3 at: {div}")
+    bar = 1e-12 if f64 else 5e-5     # the float32 bar: test_pallas_kernels
+    check(sp_ref <= bar and sp_plain <= bar,
+          f"band_chase {tag} spectrum == eigvalsh == plain (bar {bar:g})")
+    if f64:
+        # rounding order differs (FMA contraction, summation), so d, e and
+        # the reflectors drift apart along the chase: |v| <= 1 and tau is 0
+        # or in [1, 2], and the drift reaches 2e-10 at n = 4096 and 2e-8 at
+        # n = 16384, while a wrong reflector differs by O(1)
+        check(err <= 1e-8 * scale and hv_err <= 1e-6 and ht_err <= 1e-6,
+              f"band_chase {tag} d, e, HV, HT == plain")
+    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "hv_err": hv_err, "ht_err": ht_err, "spectrum_rel_err": sp_ref,
+           "first_divergence": div}
+    if recon:
+        # the reflectors reduce the band to tridiag(d, e): band = Q2 T Q2^T
+        q2 = bulge.apply_chase_q(
+            res, torch.eye(n, dtype=band_m.dtype, device=band_m.device))
+        tri = (torch.diag(res.d) + torch.diag(res.e, 1)
+               + torch.diag(res.e, -1))
+        rec = float((q2 @ tri @ q2.T - band_m).abs().max()) / scale
+        print(f"  max |Q2 T Q2^T - band| / ||band||_2 = {rec:.3e} "
+              f"(bar {bar:g})")
+        check(rec <= bar, f"band_chase {tag} reflectors reproduce the band")
+        out["reconstruction_rel_err"] = rec
+        del q2, tri
+    return res, out
+
+
+def compare_bt(name, run, run_plain, res, z, reps=1):
+    """A chase back-transform (``run``) against its plain version on
+    ``(res, z)``, the bars of tests/test_bt_blocked.py."""
+    import torch
+
+    tag = "f64" if z.dtype == torch.float64 else "f32"
+    got = run(res, z)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: run(res, z), reps)
+    t0 = time.time()
+    ref = run_plain(res, z)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    bar = 1e-12 if tag == "f64" else 5e-6
+    zs = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    n, k = z.shape
+    print(f"{name} {tag}: n={n} k={k}, kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, max |dz| {err:.3e} (bar {bar:g} * {zs:.3g})")
+    check(bool(torch.isfinite(got).all()) and err <= bar * zs,
+          f"{name} {tag} n={n} k={k} kernel == plain")
+    return {"n": n, "k": k, "dtype": tag, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err}
+
+
+def phase_twostage_kernels(dev):
+    """Phase 6: B3, B4 and B5 against their plain versions on the card."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import backtransform, band, bulge, wf_bt
+
+    n, k, bw = N_KERNEL, K_KERNEL, DEFAULT_BLOCK_SIZE
+    rng = np.random.default_rng(4)
+    a_np = rng.standard_normal((n, n))
+    a_np = (a_np + a_np.T) / 2
+    z_np = rng.standard_normal((n, k))
+    out = {"chase": {}, "wf_bt": {}, "chase_bt": {}}
+    for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+        band_m = band.to_band(torch.tensor(a_np, dtype=dtype, device=dev),
+                              bw).band
+        lam_band = torch.linalg.eigvalsh(band_m.double()).cpu().numpy()
+        res, out["chase"][tag] = compare_chase(band_m, bw, lam_band, tag,
+                                               reps=3, recon=True)
+
+        z = torch.tensor(z_np, dtype=dtype, device=dev)
+        bar = 1e-12 if dtype == torch.float64 else 5e-6
+        # B4 alone: one phase of the P stream applied to the z frame, the
+        # kernel against its plain version (one bmm per composite step)
+        pl = wf_bt.plan(res, z)
+        P, u0 = next(wf_bt.stream_phases(res, pl))
+        zp0 = wf_bt.frame(z, pl)
+
+        def apply_with(fn):
+            def run():
+                zp = zp0.clone()
+                fn(P, zp, pl, u0)
+                return zp
+            return run
+
+        got = apply_with(wf_bt.apply_phase)()
+        torch.cuda.synchronize()
+        ms = time_ms(apply_with(wf_bt.apply_phase), 5)
+        plain_ms = time_ms(apply_with(wf_bt.apply_phase_plain), 5)
+        ref = apply_with(wf_bt.apply_phase_plain)()
+        zs = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        print(f"wf_bt {tag}: n={n} k={k} g={pl.g} m={pl.m}, phase 1 of "
+              f"{pl.nph} ({P.shape[0]} of {pl.Tq2} composite steps), kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, max |dz| {err:.3e} "
+              f"(bar {bar:g} * {zs:.3g})")
+        check(bool(torch.isfinite(got).all()) and err <= bar * zs,
+              f"wf_bt {tag} kernel == plain")
+        out["wf_bt"][tag] = {"ms": ms, "plain_ms": plain_ms,
+                             "max_abs_err": err}
+        del P, zp0
+        # the whole chase back-transforms, P stream build included for B4
+        whole = compare_bt("apply_chase_q_wavefront",
+                           wf_bt.apply_chase_q_wavefront,
+                           wf_bt.apply_chase_q_wavefront_plain, res, z, 3)
+        out["wf_bt"][tag].update(with_stream_ms=whole["ms"],
+                                 with_stream_plain_ms=whole["plain_ms"])
+        b5 = compare_bt("chase_bt", backtransform.apply_chase_q_sweeps,
+                        bulge.apply_chase_q, res, z, 3)
+        out["chase_bt"][tag] = {key: b5[key] for key in
+                                ("ms", "plain_ms", "max_abs_err")}
+        del res, band_m
+        torch.cuda.empty_cache()
+    return out
+
+
+def add_launches(total: dict) -> None:
+    for key, val in read_launches().items():
+        total[key] = total.get(key, 0) + val
+
+
+def phase_twostage_select(dev, tmp):
+    """Phase 7: the two-stage selecting path at n = 16384, both dtypes;
+    then its kernels against their plain versions at the path's shapes."""
+    import torch
+
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import band, wf_bt
+    from eigenkernel_tpu_torch.solvers import twostage
+
+    mat, path = write_elses(tmp, N_TWO, seed=3)
+    ref = reference_eigvalsh(mat, dev)
+    launches, checks = {}, {"chase": [], "wf_bt": []}
+    for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
+                             ("float32", (1e-5, 1e-3, 1e-4))):
+        work = os.path.join(tmp, f"two_{dtype_name}")
+        os.makedirs(work)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with env(EK_SELECT_CORE="two_stage"), \
+                capture(twostage, "apply_chase_q_wavefront") as calls:
+            out = run_cli(work, ["-s", "scalapack_select", "-n", str(K_TWO),
+                                 "-c", str(K_TWO), "-t", f"1,{K_TWO}",
+                                 "--dtype", dtype_name, path])
+        add_launches(launches)
+        print(f"  peak device memory {dtype_name}: "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_run(work, out, ref, K_TWO, f"{dtype_name} two-stage", *bars)
+        # B4 on the chase result and eigenvectors the path gave it
+        check(len(calls) == 1, "the path called B4 once")
+        res, z = calls.pop()[:2]
+        checks["wf_bt"].append(compare_bt(
+            "apply_chase_q_wavefront (path operands)",
+            wf_bt.apply_chase_q_wavefront,
+            wf_bt.apply_chase_q_wavefront_plain, res, z))
+        del res, z
+        if dtype_name == "float64":
+            # B3 on the band of this matrix at the path's bandwidth
+            a = torch.tensor(mat.to_dense(), device=dev)
+            band_m = band.to_band(a, DEFAULT_BLOCK_SIZE).band
+            del a
+            chk = compare_chase(band_m, DEFAULT_BLOCK_SIZE, ref, "f64",
+                                reps=1, recon=False)[1]
+            checks["chase"].append(dict(chk, n=N_TWO, dtype="f64"))
+            del band_m
+        torch.cuda.empty_cache()
+    print(f"launches on the two-stage selecting path: {launches}")
+    check(launches["chase"] > 0 and launches["wf_bt"] > 0,
+          "B3 and B4 launched on the two-stage selecting path")
+    return launches, checks
+
+
+def phase_eigensx(dev, tmp, n, seed, bt):
+    """Phases 8 and 9: ``-s eigensx`` on the full spectrum, float64; then
+    the path's back-transform kernel against its plain version on the
+    operands the path gave it."""
+    from eigenkernel_tpu_torch.ops import backtransform, bulge, wf_bt
+    from eigenkernel_tpu_torch.solvers import twostage
+
+    mat, path = write_elses(tmp, n, seed=seed)
+    ref = reference_eigvalsh(mat, dev)
+    work = os.path.join(tmp, f"sx_{n}_{bt}")
+    os.makedirs(work)
+    if bt == "pallas":
+        key, name = "chase_bt", "apply_chase_q_sweeps"
+        run, run_plain = backtransform.apply_chase_q_sweeps, \
+            bulge.apply_chase_q
+    else:
+        key, name = "wf_bt", "apply_chase_q_wavefront"
+        run, run_plain = wf_bt.apply_chase_q_wavefront, \
+            wf_bt.apply_chase_q_wavefront_plain
+    reset_launches()
+    with env(EK_TRIDIAG="bisect", EK_BACKTRANSFORM=bt), \
+            capture(twostage, name) as calls:
+        out = run_cli(work, ["-s", "eigensx", "-c", "-1", "-t", f"1,{n}",
+                             path])
+    launches = read_launches()
+    print(f"launches on eigensx n={n} EK_BACKTRANSFORM={bt}: {launches}")
+    check(launches["chase"] > 0 and launches["sturm"] > 0
+          and launches["solve"] > 0, "B1, B2 and B3 launched")
+    check(launches[key] > 0, f"{key} launched")
+    check_run(work, out, ref, n, f"float64 eigensx {bt}", 1e-12, 1e-10,
+              1e-10)
+    check(len(calls) == 1, f"the path called {name} once")
+    res, z = calls.pop()[:2]
+    chk = compare_bt(f"{name} (path operands)", run, run_plain, res, z)
+    return launches, {key: [chk]}
 
 
 def main() -> int:
@@ -316,6 +679,23 @@ def main() -> int:
         t0 = time.time()
         phase_full(dev, tmp)
         print(f"full spectrum: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        kern.update(phase_twostage_kernels(dev))
+        print(f"two-stage kernels: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches_two, path_checks = phase_twostage_select(dev, tmp)
+        print(f"two-stage selecting path: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        _, chk = phase_eigensx(dev, tmp, N_SX, seed=5, bt="auto")
+        path_checks["wf_bt"] += chk["wf_bt"]
+        print(f"eigensx full spectrum: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches_b5, chk = phase_eigensx(dev, tmp, N_B5, seed=6, bt="pallas")
+        path_checks.update(chk)
+        print(f"eigensx under EK_BACKTRANSFORM=pallas: "
+              f"{time.time() - t0:.1f} s")
+    launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
+                    chase_bt=launches_b5["chase_bt"])
 
     entries = []
     for key, name, src, replaces in (
@@ -324,12 +704,22 @@ def main() -> int:
              "eigenkernel_tpu/ops/pallas_sturm.py:78"),
             ("solve", "tridiag_solve_kernel",
              "eigenkernel_tpu_torch/csrc/tridiag_solve.cu",
-             "eigenkernel_tpu/ops/pallas_solve.py:114")):
+             "eigenkernel_tpu/ops/pallas_solve.py:114"),
+            ("chase", "chase_step_kernel",
+             "eigenkernel_tpu_torch/csrc/band_chase.cu",
+             "eigenkernel_tpu/ops/pallas_chase.py:392"),
+            ("wf_bt", "wf_bt_kernel",
+             "eigenkernel_tpu_torch/csrc/wf_bt.cu",
+             "eigenkernel_tpu/ops/pallas_wf_bt.py:242"),
+            ("chase_bt", "chase_bt_kernel",
+             "eigenkernel_tpu_torch/csrc/chase_bt.cu",
+             "eigenkernel_tpu/ops/pallas_backtransform.py:108")):
         f64, f32 = kern[key]["f64"], kern[key]["f32"]
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
-                        "plain_ms": f64["plain_ms"], "float32": f32})
+                        "plain_ms": f64["plain_ms"], "float32": f32,
+                        "path_checks": path_checks.get(key, [])})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  The
-library lives in ``eigenkernel_tpu_torch/_build/<hash>/``, keyed by a hash
-of the sources and the flags, so an edited source rebuilds and an unchanged
-one loads at once.  The build runs at the first kernel launch of a process,
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, which is loaded with ``ctypes``.  The
+``nvcc`` processes of all sources start together, so the build takes as
+long as the slowest source, not the sum.  A library lives in
+``eigenkernel_tpu_torch/_build/<stem>-<hash>/``, keyed by a hash of its
+source and the flags, so an edited source rebuilds and an unchanged one
+loads at once.  The build runs at the first kernel launch of a process,
 never at import: a machine without ``nvcc`` can import every module and run
 the plain PyTorch versions on CPU tensors.
 
@@ -24,21 +26,39 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
-SOURCES = ("sturm_bisect.cu", "tridiag_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: (name, argtypes); every function returns cudaError_t as int
+# source -> {C function: argtypes}; every function returns cudaError_t as int
 _SIGNATURES = {
-    "ek_sturm_bisect_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "ek_sturm_bisect_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "ek_tridiag_solve_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             ctypes.c_double, _P),
-    "ek_tridiag_solve_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             ctypes.c_float, _P),
+    "sturm_bisect.cu": {
+        "ek_sturm_bisect_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "ek_sturm_bisect_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "tridiag_solve.cu": {
+        "ek_tridiag_solve_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 ctypes.c_double, _P),
+        "ek_tridiag_solve_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 ctypes.c_float, _P),
+    },
+    "band_chase.cu": {
+        "ek_band_chase_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "ek_band_chase_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
+    },
+    "wf_bt.cu": {
+        "ek_wf_bt_f64": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P),
+        "ek_wf_bt_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P),
+    },
+    "chase_bt.cu": {
+        "ek_chase_bt_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "ek_chase_bt_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    },
 }
+SOURCES = tuple(_SIGNATURES)
 
 _LIB = None
 BUILD_SECONDS = 0.0   # wall time of this process's build (0 if cached)
@@ -53,11 +73,10 @@ class KernelLaunchError(RuntimeError):
     pass
 
 
-def _source_hash() -> str:
+def _source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
+    with open(os.path.join(CSRC, name), "rb") as f:
+        h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
@@ -76,42 +95,72 @@ def _nvcc() -> str:
     return found
 
 
-def _build(out_dir: str) -> str:
+def _lib_path(name: str) -> str:
+    stem = os.path.splitext(name)[0]
+    return os.path.join(BUILD_ROOT, f"{stem}-{_source_hash(name)}",
+                        f"lib{stem}.so")
+
+
+def _build_all() -> dict:
+    """Build every source whose library is missing, all ``nvcc`` processes
+    at once; returns {source: library path}."""
     global BUILD_SECONDS, BUILD_LOG
-    lib_path = os.path.join(out_dir, "libek_kernels.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(out_dir, exist_ok=True)
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = [name for name, p in paths.items() if not os.path.exists(p)]
+    if not todo:
+        return paths
     t0 = time.time()
-    # build to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelCompileError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(BUILD_LOG)
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        out_dir = os.path.dirname(paths[name])
+        os.makedirs(out_dir, exist_ok=True)
+        # build to a temporary name, then rename: a concurrent or
+        # interrupted build never leaves a half-written library behind
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, cmd, tmp, proc))
+    logs, failed = [], []
+    for name, cmd, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        with open(os.path.join(os.path.dirname(paths[name]), "build.log"),
+                  "w") as f:
+            f.write(out)
+        os.replace(tmp, paths[name])
+    BUILD_LOG = "\n".join(logs)
     BUILD_SECONDS = time.time() - t0
-    return lib_path
+    if failed:
+        raise KernelCompileError("\n".join(failed))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+class _Kernels:
+    """The C functions of every kernel library, by name."""
+
+    def __init__(self, paths: dict):
+        for name, sigs in _SIGNATURES.items():
+            lib = ctypes.CDLL(paths[name])
+            for fn_name, argtypes in sigs.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                setattr(self, fn_name, fn)
+
+
+def library() -> _Kernels:
+    """The loaded kernel functions, built on first use."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(_build(os.path.join(BUILD_ROOT, _source_hash())))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _Kernels(_build_all())
     return _LIB
 
 

@@ -1,0 +1,194 @@
+"""The band -> tridiagonal bulge chase on the stagger-4 wavefront (kernel B3).
+
+Counterpart of ``eigenkernel_tpu/ops/pallas_chase.py::band_to_tridiag_pallas``
+(the JAX package's TPU default, which runs the schedule of
+``bulge.band_to_tridiag_wavefront2`` as one VMEM-resident kernel).  The
+reflectors are those of the JAX package's sequential chase
+(``bulge._band_to_tridiag_seq``); only the order of window-disjoint steps
+differs.
+
+Schedule: sweeps start 4 chase steps apart.  At step tau, lane j chases
+sweep ``c = tau//4 - j`` at band position ``t = tau%4 + 4j``; its window
+starts at row ``p = c + 1 + t*b``, so the lanes of one step sit ``4b-1``
+rows apart and touch the disjoint row spans ``[p, p+2b)`` (stagger 3 would
+collide by one row: the fill ``(p+2b-1, p+b-1)`` is the next window's
+pivot).  ``4(n-3) + T`` steps cover every (sweep, position), T = n//b + 2.
+
+State: the lower half of the band with the bulge margin, ``lb[i, q] =
+A[i, i+q-2b]``, q in [0, 2b], n + 2b rows (rows >= n are zero).  One lane's
+two-sided update, in dense terms (window D = A[p:p+b, p:p+b]):
+
+* pivot column ``x = A[p:p+b, jcol]``, jcol = c for t == 0, else p - b;
+  ``(v, tau)`` its Householder with v[0] = 1;
+* ``D <- H D H`` (lower half stored, the corner ``A[p+b-1, p+b-1]``
+  included), left strip ``A[p:p+b, p-b-1:p] <- H L``, bulge fill rows
+  ``A[p+b:p+2b, p:p+b] <- F H``.
+
+A CUDA tensor runs ``csrc/band_chase.cu`` (one launch per step, one CTA per
+live lane); a CPU tensor runs :func:`chase_plain`, the same steps in
+PyTorch, batched over the live lanes.  ``EK_CHASE`` (the JAX package's
+schedule choice) is not ported: this is the only chase.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from eigenkernel_tpu_torch.ops import build
+from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _house_pivot0,
+                                             _to_banded, trivial_chase)
+
+LAUNCHES = 0  # kernel launches (one per wavefront step; CPU runs add none)
+
+_FN = {torch.float64: "ek_band_chase_f64",
+       torch.float32: "ek_band_chase_f32"}
+
+
+def n_positions(n: int, b: int) -> int:
+    """T, the band positions per sweep of the reflector store."""
+    return n // b + 2
+
+
+def n_steps(n: int, b: int) -> int:
+    """The wavefront steps of the chase, ``4(n-3) + T``."""
+    return 4 * (n - 3) + n_positions(n, b)
+
+
+def _live_lanes(tau: int, n: int, b: int, T: int):
+    """(c, t, p) of every live lane at step tau."""
+    out = []
+    for j in range(max(0, tau // 4 - (n - 3)), tau // 4 + 1):
+        t = tau % 4 + 4 * j
+        c = tau // 4 - j
+        p = c + 1 + t * b
+        jcol = c if t == 0 else p - b
+        if t > T - 1:
+            break
+        if 0 <= c <= n - 3 and p < n - 1 and jcol < n - 1:
+            out.append((c, t, p))
+    return out
+
+
+def _offsets(b: int, dev):
+    """Flat offsets (from row p of the state) of one lane's faces."""
+    W = 2 * b + 1
+    r = torch.arange(b, device=dev)[:, None]
+    s = torch.arange(b, device=dev)[None, :]
+    hi, lo = torch.maximum(r, s), torch.minimum(r, s)
+    sl = torch.arange(b + 1, device=dev)[None, :]
+    return {
+        # pivot column for t == 0 (jcol = p-1) and for t > 0 (jcol = p-b)
+        "x0": r[:, 0] * W + (2 * b - 1 - r[:, 0]),
+        "x1": r[:, 0] * W + (b - r[:, 0]),
+        # D[r, s] = A[p+max, p+min]; the write takes its lower half
+        "D": hi * W + 2 * b + lo - hi,
+        "lower": (s <= r).reshape(-1),
+        # left strip L[r, s] = A[p+r, p-b-1+s], s in [0, b]
+        "L": r * W + b - 1 + sl - r,
+        # fill rows F[r, s] = A[p+b+r, p+s]
+        "F": (b + r) * W + b + s - r,
+    }
+
+
+def chase_plain(lb: torch.Tensor, hv: torch.Tensor, ht: torch.Tensor,
+                n: int, b: int) -> None:
+    """The kernel's steps in PyTorch: per step, gather the live lanes'
+    faces, update, scatter back.  Updates ``lb``, ``hv`` and ``ht`` in
+    place."""
+    T = hv.shape[1]
+    W = 2 * b + 1
+    dev = lb.device
+    flat = lb.view(-1)
+    off = _offsets(b, dev)
+    d_low = off["D"].reshape(-1)[off["lower"]]
+    for tau in range(n_steps(n, b)):
+        lanes = _live_lanes(tau, n, b, T)
+        if not lanes:
+            continue
+        c, t, p = (torch.tensor(x, device=dev) for x in zip(*lanes))
+        base = (p * W)[:, None]
+        x = torch.where((t == 0)[:, None], flat[base + off["x0"]],
+                        flat[base + off["x1"]])                    # (nl, b)
+        v, th = _house_pivot0(x)
+        hv[c, t] = v
+        ht[c, t] = th
+        thv = th[:, None, None]
+        base3 = base[:, :, None]
+        D = flat[base3 + off["D"]]                                 # (nl,b,b)
+        L = flat[base3 + off["L"]]                                 # (nl,b,b+1)
+        F = flat[base3 + off["F"]]                                 # (nl,b,b)
+        dv = (D * v[:, None, :]).sum(2)
+        vdv = (v * dv).sum(1)[:, None, None]
+        vv = v[:, :, None] * v[:, None, :]
+        dnew = (D - thv * (v[:, :, None] * dv[:, None, :])
+                - thv * (dv[:, :, None] * v[:, None, :])
+                + thv * thv * vdv * vv)
+        cl = (v[:, :, None] * L).sum(1)                            # (nl,b+1)
+        L = L - thv * (v[:, :, None] * cl[:, None, :])
+        cr = (F * v[:, None, :]).sum(2)                            # (nl, b)
+        F = F - thv * (cr[:, :, None] * v[:, None, :])
+        flat[base + d_low] = dnew.reshape(len(lanes), -1)[:, off["lower"]]
+        flat[base3 + off["L"]] = L
+        flat[base3 + off["F"]] = F
+
+
+def _check(band: torch.Tensor) -> None:
+    if band.dtype not in _FN:
+        raise TypeError(f"band_to_tridiag: dtype {band.dtype} not "
+                        f"float32/float64")
+    if band.dim() != 2 or band.shape[0] != band.shape[1]:
+        raise ValueError(f"band_to_tridiag: square matrix expected, got "
+                         f"{tuple(band.shape)}")
+
+
+def _state(band: torch.Tensor, b: int):
+    """The chase state ``lb`` and zeroed reflector stores."""
+    n = band.shape[0]
+    T = n_positions(n, b)
+    lb = band.new_zeros((n + 2 * b, 2 * b + 1))
+    lb[:n] = _to_banded(band, b)
+    return lb, band.new_zeros((n, T, b)), band.new_zeros((n, T))
+
+
+def _result(lb, hv, ht, n: int, b: int) -> ChaseResult:
+    return ChaseResult(d=lb[:n, 2 * b].clone(), e=lb[1:n, 2 * b - 1].clone(),
+                       HV=hv, HT=ht, bw=b)
+
+
+def band_to_tridiag_plain(band: torch.Tensor, bw: int) -> ChaseResult:
+    """:func:`band_to_tridiag` by the plain version, on any device."""
+    _check(band)
+    n = band.shape[0]
+    if n <= 2 or bw <= 1:
+        return trivial_chase(band, bw)
+    lb, hv, ht = _state(band, bw)
+    chase_plain(lb, hv, ht, n, bw)
+    return _result(lb, hv, ht, n, bw)
+
+
+def band_to_tridiag(band: torch.Tensor, bw: int) -> ChaseResult:
+    """Reduce a symmetric band matrix (semibandwidth ``bw``, dense storage)
+    to tridiagonal.  A CUDA tensor runs the CUDA kernel, a CPU tensor the
+    plain version."""
+    global LAUNCHES
+    _check(band)
+    if band.device.type == "cpu":
+        return band_to_tridiag_plain(band, bw)
+    if band.device.type != "cuda":
+        raise ValueError(f"band_to_tridiag: unsupported device {band.device}")
+    n = band.shape[0]
+    if n <= 2 or bw <= 1:
+        return trivial_chase(band, bw)
+    lb, hv, ht = _state(band, bw)
+    lib = build.library()
+    name = _FN[band.dtype]
+    launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(band.device).cuda_stream
+    status = getattr(lib, name)(lb.data_ptr(), hv.data_ptr(), ht.data_ptr(),
+                                n, bw, hv.shape[1], ctypes.byref(launched),
+                                stream)
+    build.check(status, name)
+    LAUNCHES += launched.value
+    return _result(lb, hv, ht, n, bw)

@@ -116,26 +116,34 @@ def wy_t_factor(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(m, eye, upper=True)
 
 
-def apply_q(tri: TridiagResult, z: torch.Tensor,
-            block: int = 64) -> torch.Tensor:
-    """``Q z`` with Q from :func:`tridiagonalize` (pdormtr analog).
+def apply_wy(V: torch.Tensor, taus: torch.Tensor, z: torch.Tensor,
+             block: int = 64) -> torch.Tensor:
+    """``H_0 H_1 ... z`` for reflectors stored as the columns of ``V``
+    (column c zero above row c), each group of panels as one compact-WY
+    product.
 
     Groups of panels of up to 512 columns are applied last to first, each
     as ``z -= V (T (V^T z))`` on the rows the group's reflectors touch:
     one pass over z per group instead of one per panel.  Returns a new
     tensor; ``z`` is not modified.
     """
-    n = tri.V.shape[0]
+    n = V.shape[0]
     b = max(1, min(block, n))
     gb = max(1, 512 // b) * b
     z = z.clone()
     for s in reversed(range(0, n, gb)):
         w = min(gb, n - s)
-        v = tri.V[s:, s:s + w]             # rows above s are zero
-        t = wy_t_factor(v, tri.taus[s:s + w])
+        v = V[s:, s:s + w]                 # rows above s are zero
+        t = wy_t_factor(v, taus[s:s + w])
         zs = z[s:]
         zs -= v @ (t @ (v.T @ zs))
     return z
+
+
+def apply_q(tri: TridiagResult, z: torch.Tensor,
+            block: int = 64) -> torch.Tensor:
+    """``Q z`` with Q from :func:`tridiagonalize` (pdormtr analog)."""
+    return apply_wy(tri.V, tri.taus, z, block)
 
 
 def tridiag_matrix(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:

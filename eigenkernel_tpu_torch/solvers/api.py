@@ -5,12 +5,13 @@ Counterpart of the standard-problem branch of
 matrix on the device, run the pipeline, slice the requested eigenpairs.
 There is no padding and no mesh: every op here takes any n, and one
 device runs the solve.  Generalized problems, ``dtype='mixed'`` and the
-SEP cores other than the one-stage one raise ``NotImplementedError`` with
-their ROADMAP item.
+SEP cores other than the one- and two-stage ones raise
+``NotImplementedError`` with their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -82,7 +83,16 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     a_dev = torch.as_tensor(a).to(device=device, dtype=torch_dtype)
     panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
     ctx = pl.SolverContext(device=device, block_size=panel, log=log)
-    w, z = pl.standard_pipeline(ctx, a_dev, n_vec, spec.core)
+    # EK_SELECT_CORE=one_stage|two_stage pins a selecting solver's SEP core,
+    # as in the JAX package.  Its 'auto' picks the two-stage core only on a
+    # TPU (a TPU crossover, not re-measured here), so 'auto' keeps the
+    # registry's one-stage core.
+    core = spec.core
+    if spec.selecting and core == "one_stage":
+        sel = os.environ.get("EK_SELECT_CORE", "auto")
+        if sel in ("one_stage", "two_stage"):
+            core = sel
+    w, z = pl.standard_pipeline(ctx, a_dev, n_vec, core)
     return EigenPairs(values=w[:n_vec], vectors=z[:, :n_vec],
-                      meta={"solver": solver, "panel": panel,
+                      meta={"solver": solver, "core": core, "panel": panel,
                             "device": str(device)})

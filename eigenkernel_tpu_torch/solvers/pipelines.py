@@ -1,17 +1,20 @@
-"""Solver pipelines: the one-stage SEP core on a standard problem.
+"""Solver pipelines: the SEP cores on a standard problem.
 
-Counterpart of ``eigenkernel_tpu/solvers/pipelines.py``, for the core this
+Counterpart of ``eigenkernel_tpu/solvers/pipelines.py``, for the cores this
 package runs so far:
 
   'one_stage' = blocked Householder tridiagonalization (pdsytrd analog)
               + bisection / inverse-iteration tridiagonal solve (pdsyevx)
               + compact-WY back-transform (pdormtr)
+  'two_stage' = full -> band -> tridiagonal (eigen_sx / ELPA2 analog,
+                :mod:`.twostage`) + the same tridiagonal solve
+                + chase and band back-transforms
 
 Each stage is timed into the context's :class:`EventLog` under the
 reference's hierarchical names (``sep:tridiagonalize``,
-``sep:tridiag_eigh``, ``sep:back_transform``), with a
-``torch.cuda.synchronize()`` before each clock stops, and its model
-GFLOP/s as ``!<stage>_Gflops``.
+``sep:full_to_band``, ``sep:band_to_tridiag``, ``sep:tridiag_eigh``,
+``sep:back_transform``), with a ``torch.cuda.synchronize()`` before each
+clock stops, and its model GFLOP/s as ``!<stage>_Gflops``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from eigenkernel_tpu_torch.ops import tridiag as td
 # SEP cores of the registry that are still to be ported, with their
 # ROADMAP items
 _NOT_PORTED = {
-    "two_stage": "two-stage core: ROADMAP slice 4",
     "eigh": "eigh core: ROADMAP slice 1b",
     "jacobi": "block-Jacobi core: ROADMAP slice 6",
     "qdwh": "QDWH spectral divide-and-conquer core: ROADMAP slice 6",
@@ -78,7 +80,10 @@ def sep_one_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):
 def standard_pipeline(ctx: SolverContext, a: torch.Tensor, n_vec: int,
                       core: str):
     """Standard EVP: run the SEP core (no padding in this package)."""
-    if core != "one_stage":
-        raise NotImplementedError(
-            _NOT_PORTED.get(core, f"SEP core '{core}'"))
-    return sep_one_stage(ctx, a, n_vec)
+    if core == "one_stage":
+        return sep_one_stage(ctx, a, n_vec)
+    if core == "two_stage":
+        from eigenkernel_tpu_torch.solvers.twostage import sep_two_stage
+
+        return sep_two_stage(ctx, a, n_vec)
+    raise NotImplementedError(_NOT_PORTED.get(core, f"SEP core '{core}'"))

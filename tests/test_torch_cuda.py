@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from eigenkernel_tpu_torch.ops import sturm, tridiag_solve
+from eigenkernel_tpu_torch.ops import (backtransform, band, bulge, chase,
+                                       sturm, tridiag_solve, wf_bt)
 from eigenkernel_tpu_torch.ops.tridiag import gershgorin_bounds, pivot_floor
 
 
@@ -77,6 +78,97 @@ def test_selecting_solve_on_card_launches_both_kernels(cuda_device):
     pairs = solve(torch.tensor(a, device=cuda_device),
                   solver="scalapack_select", n_vec=12)
     assert sturm.LAUNCHES > 0 and tridiag_solve.LAUNCHES > 0
+    w = pairs.values.cpu().numpy()
+    v = pairs.vectors.cpu().numpy()
+    assert np.abs(w - np.linalg.eigvalsh(a)[:12]).max() <= 1e-12 * 30
+    assert np.abs(a @ v - v * w[None, :]).max() <= 1e-12 * 30
+
+
+def _chase_input(n, bw, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    a = np.triu(np.tril(a + a.T, bw), -bw)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _spectrum(res):
+    d = res.d.double().cpu().numpy()
+    e = res.e.double().cpu().numpy()
+    return np.linalg.eigvalsh(np.diag(d) + np.diag(e, 1) + np.diag(e, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,bw", [(300, 8), (257, 64), (97, 3)])
+def test_chase_kernel_matches_plain_on_card(cuda_device, dtype, n, bw):
+    bnd = _chase_input(n, bw, n + bw, dtype, cuda_device)
+    before = chase.LAUNCHES
+    got = chase.band_to_tridiag(bnd, bw)
+    torch.cuda.synchronize()
+    assert chase.LAUNCHES > before
+    plain = chase.band_to_tridiag_plain(bnd, bw)
+    lam = np.linalg.eigvalsh(bnd.double().cpu().numpy())
+    scale = np.abs(lam).max()
+    f64 = dtype == torch.float64
+    # the spectrum is the invariant; in float64 d and e also agree, up to
+    # the rounding-order drift along the chase
+    bar = 1e-12 if f64 else 5e-5
+    assert np.abs(_spectrum(got) - lam).max() <= bar * scale
+    assert np.abs(_spectrum(got) - _spectrum(plain)).max() <= bar * scale
+    if f64:
+        assert float((got.d - plain.d).abs().max()) <= 1e-10 * scale
+        assert float((got.e - plain.e).abs().max()) <= 1e-10 * scale
+        assert float((got.HT - plain.HT).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,bw,g,m,nbytes", [
+    (300, 8, 0, 8, wf_bt.STREAM_BYTES), (257, 16, 40, 5, 200000),
+    (130, 3, 5, 41, 10 ** 9), (300, 64, 0, 1, wf_bt.STREAM_BYTES)])
+def test_back_transform_kernels_match_plain_on_card(cuda_device, monkeypatch,
+                                                    dtype, n, bw, g, m,
+                                                    nbytes):
+    # m: the composition depth that the rule gives for this b and g
+    monkeypatch.delenv("EK_BT_GROUP", raising=False)
+    monkeypatch.setattr(wf_bt, "STREAM_BYTES", nbytes)
+    res = chase.band_to_tridiag_plain(
+        _chase_input(n, bw, n, dtype, cuda_device), bw)
+    z = torch.tensor(np.random.default_rng(1).standard_normal((n, 70)),
+                     dtype=dtype, device=cuda_device)
+    ref = bulge.apply_chase_q(res, z)
+    scale = float(ref.abs().max())
+    bar = 1e-12 if dtype == torch.float64 else 5e-6
+    assert wf_bt.plan(res, z, g).m == m
+    before = (wf_bt.LAUNCHES, backtransform.LAUNCHES)
+    z4 = wf_bt.apply_chase_q_wavefront(res, z, g)
+    z5 = backtransform.apply_chase_q_sweeps(res, z)
+    torch.cuda.synchronize()
+    assert wf_bt.LAUNCHES > before[0]
+    assert backtransform.LAUNCHES == before[1] + 1
+    z4p = wf_bt.apply_chase_q_wavefront_plain(res, z, g)
+    assert float((z4 - z4p).abs().max()) <= bar * scale
+    assert float((z4 - ref).abs().max()) <= bar * scale
+    assert float((z5 - ref).abs().max()) <= bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt", ["auto", "pallas"])
+def test_two_stage_solve_on_card_launches_its_kernels(cuda_device,
+                                                      monkeypatch, bt):
+    from eigenkernel_tpu_torch.solvers import solve
+
+    monkeypatch.setenv("EK_SELECT_CORE", "two_stage")
+    monkeypatch.setenv("EK_BACKTRANSFORM", bt)
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((300, 300))
+    a = (a + a.T) / 2
+    for mod in (chase, wf_bt, backtransform):
+        mod.LAUNCHES = 0
+    pairs = solve(torch.tensor(a, device=cuda_device),
+                  solver="scalapack_select", n_vec=12)
+    assert chase.LAUNCHES > 0
+    assert (backtransform.LAUNCHES if bt == "pallas" else wf_bt.LAUNCHES) > 0
     w = pairs.values.cpu().numpy()
     v = pairs.vectors.cpu().numpy()
     assert np.abs(w - np.linalg.eigvalsh(a)[:12]).max() <= 1e-12 * 30

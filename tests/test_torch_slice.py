@@ -165,7 +165,7 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
     elif case == "unknown_solver":
         argv[3] = "nope"
     elif case == "not_ported_core":
-        argv = ["--platform", "cpu", "-s", "eigensx", str(mtx)]
+        argv = ["--platform", "cpu", "-s", "jacobi", str(mtx)]
     elif case == "mixed_dtype":
         argv = ["--dtype", "mixed"] + argv
     elif case == "missing_file":
