@@ -30,11 +30,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    eigenpairs of an ELSES-style n = 16384 matrix, float64 and float32,
    against one float64 ``torch.linalg.eigvalsh`` of the matrix; B3 and B4
    must have been launched.  B4 is then held against its plain version on
-   the operands the path gave it (recorded during the run), and, in
-   float64, B3 against its plain version on the band of that matrix.
+   the operands the path gave it (recorded during the run), whole and
+   phase by phase (the stream build, the kernel and the per-step
+   ``torch.bmm``, each timed apart), and, in float64, B3 against its plain
+   version on the band of that matrix.
 8. Full spectrum through the two-stage core: ``EK_TRIDIAG=bisect -s
    eigensx`` at n = 4096, float64 (B4 at k = n, then held against its plain
-   version on the path's operands).
+   version on the path's operands, whole and phase by phase).
 9. The per-sweep back-transform on the path: ``EK_BACKTRANSFORM=pallas``
    with ``-s eigensx`` at n = 2048, float64; B5 must have been launched,
    and is then held against its plain version on the path's operands.
@@ -42,7 +44,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
 path do not count.  The second-to-last line is a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+entry per kernel: its time, its plain version's, its bound
+(``eigenkernel_tpu_torch/obs/flops.py``: the larger of its operations
+over the card's peak and its bytes over the memory rate, with what bounds
+it) and, for B4, the per-step ``torch.bmm`` (``library_ms``; null for the
+others, which no one PyTorch call computes), in float64 at the shape named
+in the entry; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -397,6 +404,7 @@ def compare_chase(band_m, bw, lam_ref, tag, reps, recon):
     import scipy.linalg as sla
     import torch
 
+    from eigenkernel_tpu_torch.obs import flops
     from eigenkernel_tpu_torch.ops import bulge, chase
 
     n = band_m.shape[0]
@@ -421,8 +429,12 @@ def compare_chase(band_m, bw, lam_ref, tag, reps, recon):
     lam_k = spectrum(res)
     sp_ref = float(np.abs(lam_k - lam_ref).max()) / scale
     sp_plain = float(np.abs(lam_k - spectrum(plain)).max()) / scale
-    print(f"band_chase {tag}: n={n} bw={bw}, {chase.n_steps(n, bw)} steps, "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, max |d, e - plain| "
+    steps = chase.n_steps(n, bw)
+    bound_ms, bound_by = flops.bound_chase(n, bw, band_m.dtype)
+    print(f"band_chase {tag}: n={n} bw={bw}, {steps} steps in one launch "
+          f"({chase.BRANCH} branch, {chase.GRID} CTAs), kernel {ms:.3f} ms "
+          f"({1e3 * ms / steps:.3f} us per step; bound {bound_ms:.3f} ms, "
+          f"{bound_by}), plain {plain_ms:.1f} ms, max |d, e - plain| "
           f"{err:.3e}, |HV - plain| {hv_err:.3e}, |HT - plain| {ht_err:.3e}, "
           f"spectrum vs eigvalsh {sp_ref:.3e}, vs plain {sp_plain:.3e} "
           f"(relative to ||band||_2 {scale:.4g})")
@@ -440,7 +452,9 @@ def compare_chase(band_m, bw, lam_ref, tag, reps, recon):
               f"band_chase {tag} d, e, HV, HT == plain")
     out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
            "hv_err": hv_err, "ht_err": ht_err, "spectrum_rel_err": sp_ref,
-           "first_divergence": div}
+           "first_divergence": div, "branch": chase.BRANCH,
+           "grid": chase.GRID, "us_per_step": 1e3 * ms / steps,
+           "bound_ms": bound_ms, "bound_by": bound_by}
     if recon:
         # the reflectors reduce the band to tridiag(d, e): band = Q2 T Q2^T
         q2 = bulge.apply_chase_q(
@@ -479,6 +493,56 @@ def compare_bt(name, run, run_plain, res, z, reps=1):
           f"{name} {tag} n={n} k={k} kernel == plain")
     return {"n": n, "k": k, "dtype": tag, "ms": ms, "plain_ms": plain_ms,
             "max_abs_err": err}
+
+
+def compare_wf_bt_phases(res, z, tag_extra=""):
+    """B4 on ``(res, z)`` phase by phase: the stream build, the kernel and
+    the per-step ``torch.bmm`` loop (the plain version, which is also the
+    library call), each timed with CUDA events on every phase; the z
+    frames they leave are held against each other (the bars of
+    tests/test_bt_blocked.py)."""
+    import torch
+
+    from eigenkernel_tpu_torch.obs import flops
+    from eigenkernel_tpu_torch.ops import wf_bt
+
+    tag = "f64" if z.dtype == torch.float64 else "f32"
+    n, k = z.shape
+    pl = wf_bt.plan(res, z)
+    zk = wf_bt.frame(z, pl)
+    zb = zk.clone()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    stream_ms = kernel_ms = bmm_ms = 0.0
+    phases = wf_bt.stream_phases(res, pl)
+    for _ in range(pl.nph):
+        ev[0].record()
+        P, u0 = next(phases)
+        ev[1].record()
+        wf_bt.apply_phase(P, zk, pl, u0)
+        ev[2].record()
+        wf_bt.apply_phase_plain(P, zb, pl, u0)
+        ev[3].record()
+        torch.cuda.synchronize()
+        stream_ms += ev[0].elapsed_time(ev[1])
+        kernel_ms += ev[1].elapsed_time(ev[2])
+        bmm_ms += ev[2].elapsed_time(ev[3])
+        del P
+    bar = 1e-12 if tag == "f64" else 5e-6
+    zs = float(zb.abs().max())
+    err = float((zk - zb).abs().max())
+    bound_ms, bound_by, launches, steps = flops.bound_wf_bt(
+        n, k, pl.b, pl.g, z.dtype)
+    print(f"wf_bt {tag}{tag_extra}: n={n} k={k} g={pl.g} m={pl.m}, {pl.nph} "
+          f"phases, {launches} launches, {steps} lane-steps: kernel "
+          f"{kernel_ms:.3f} ms, per-step bmm {bmm_ms:.3f} ms, stream build "
+          f"{stream_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+          f"max |dz| {err:.3e} (bar {bar:g} * {zs:.3g})")
+    check(bool(torch.isfinite(zk).all()) and err <= bar * zs,
+          f"wf_bt {tag} n={n} k={k} kernel == per-step bmm")
+    return {"n": n, "k": k, "dtype": tag, "ms": kernel_ms,
+            "plain_ms": bmm_ms, "library_ms": bmm_ms,
+            "stream_ms": stream_ms, "max_abs_err": err,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_twostage_kernels(dev):
@@ -564,7 +628,7 @@ def phase_twostage_select(dev, tmp):
 
     mat, path = write_elses(tmp, N_TWO, seed=3)
     ref = reference_eigvalsh(mat, dev)
-    launches, checks = {}, {"chase": [], "wf_bt": []}
+    launches, checks = {}, {"chase": [], "wf_bt": [], "wf_bt_phases": []}
     for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
                              ("float32", (1e-5, 1e-3, 1e-4))):
         work = os.path.join(tmp, f"two_{dtype_name}")
@@ -587,6 +651,8 @@ def phase_twostage_select(dev, tmp):
             "apply_chase_q_wavefront (path operands)",
             wf_bt.apply_chase_q_wavefront,
             wf_bt.apply_chase_q_wavefront_plain, res, z))
+        checks["wf_bt_phases"].append(
+            compare_wf_bt_phases(res, z, " (path operands)"))
         del res, z
         if dtype_name == "float64":
             # B3 on the band of this matrix at the path's bandwidth
@@ -637,8 +703,12 @@ def phase_eigensx(dev, tmp, n, seed, bt):
               1e-10)
     check(len(calls) == 1, f"the path called {name} once")
     res, z = calls.pop()[:2]
-    chk = compare_bt(f"{name} (path operands)", run, run_plain, res, z)
-    return launches, {key: [chk]}
+    out = {key: [compare_bt(f"{name} (path operands)", run, run_plain, res,
+                            z)]}
+    if key == "wf_bt":
+        out["wf_bt_phases"] = [compare_wf_bt_phases(res, z,
+                                                    " (path operands)")]
+    return launches, out
 
 
 def main() -> int:
@@ -654,7 +724,8 @@ def main() -> int:
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     sys.path.insert(0, ROOT)
-    from eigenkernel_tpu_torch.core.config import set_matmul_precision_highest
+    from eigenkernel_tpu_torch.core.config import (
+        DEFAULT_BLOCK_SIZE, set_matmul_precision_highest)
     from eigenkernel_tpu_torch.ops import build
 
     set_matmul_precision_highest()
@@ -688,6 +759,7 @@ def main() -> int:
         t0 = time.time()
         _, chk = phase_eigensx(dev, tmp, N_SX, seed=5, bt="auto")
         path_checks["wf_bt"] += chk["wf_bt"]
+        path_checks["wf_bt_phases"] += chk["wf_bt_phases"]
         print(f"eigensx full spectrum: {time.time() - t0:.1f} s")
         t0 = time.time()
         launches_b5, chk = phase_eigensx(dev, tmp, N_B5, seed=6, bt="pallas")
@@ -697,6 +769,26 @@ def main() -> int:
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"])
 
+    # each entry's numbers at one shape of its path: B1/B2 at phase 3's
+    # n = 4096, k = 500; B3 and B4 on the n = 16384 two-stage select path's
+    # own band and operands; B5 at phase 6's n = 4096, k = 500; float64
+    from eigenkernel_tpu_torch.obs import flops
+
+    f64 = torch.float64
+    sel = {"chase": path_checks["chase"][0],
+           "wf_bt": path_checks["wf_bt_phases"][0]}
+    bounds = {
+        "sturm": flops.bound_sturm(N_KERNEL, K_KERNEL, 62, f64),
+        "solve": flops.bound_solve(N_KERNEL, K_KERNEL, f64),
+        "chase": (sel["chase"]["bound_ms"], sel["chase"]["bound_by"]),
+        "wf_bt": (sel["wf_bt"]["bound_ms"], sel["wf_bt"]["bound_by"]),
+        "chase_bt": flops.bound_chase_bt(N_KERNEL, K_KERNEL,
+                                         DEFAULT_BLOCK_SIZE, f64)}
+    shapes = {"sturm": f"n={N_KERNEL} k={K_KERNEL} iters=62",
+              "solve": f"n={N_KERNEL} k={K_KERNEL}",
+              "chase": f"n={N_TWO} bw={DEFAULT_BLOCK_SIZE} (path band)",
+              "wf_bt": f"n={N_TWO} k={K_TWO} (path operands)",
+              "chase_bt": f"n={N_KERNEL} k={K_KERNEL}"}
     entries = []
     for key, name, src, replaces in (
             ("sturm", "sturm_bisect_kernel",
@@ -705,7 +797,7 @@ def main() -> int:
             ("solve", "tridiag_solve_kernel",
              "eigenkernel_tpu_torch/csrc/tridiag_solve.cu",
              "eigenkernel_tpu/ops/pallas_solve.py:114"),
-            ("chase", "chase_step_kernel",
+            ("chase", "chase_kernel",
              "eigenkernel_tpu_torch/csrc/band_chase.cu",
              "eigenkernel_tpu/ops/pallas_chase.py:392"),
             ("wf_bt", "wf_bt_kernel",
@@ -714,12 +806,24 @@ def main() -> int:
             ("chase_bt", "chase_bt_kernel",
              "eigenkernel_tpu_torch/csrc/chase_bt.cu",
              "eigenkernel_tpu/ops/pallas_backtransform.py:108")):
-        f64, f32 = kern[key]["f64"], kern[key]["f32"]
+        at = sel.get(key, kern[key]["f64"])
+        # float32 at the same shape where the path gave one (B4), else at
+        # the kernel comparison's n = 4096
+        f32 = (path_checks["wf_bt_phases"][1] if key == "wf_bt" else
+               dict(kern[key]["f32"], shape=f"n={N_KERNEL} k={K_KERNEL}"))
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[key],
-                        "max_abs_err": f64["max_abs_err"], "ms": f64["ms"],
-                        "plain_ms": f64["plain_ms"], "float32": f32,
-                        "path_checks": path_checks.get(key, [])})
+                        "max_abs_err": at["max_abs_err"], "ms": at["ms"],
+                        "plain_ms": at["plain_ms"],
+                        "bound_ms": bounds[key][0],
+                        "bound_by": bounds[key][1],
+                        "library_ms": at.get("library_ms"),
+                        "shape": shapes[key], "dtype": "float64",
+                        "float32": f32,
+                        "phase_kernels": kern[key]["f64"],
+                        "path_checks": path_checks.get(key, [])
+                        + (path_checks["wf_bt_phases"] if key == "wf_bt"
+                           else [])})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Model flop counts of the SEP cores' stages.
+"""Model flop counts of the SEP cores' stages, and the bounds of the
+port's kernels on the card.
 
-Counterpart of the one- and two-stage parts of
+The stage counts are the counterpart of the one- and two-stage parts of
 ``eigenkernel_tpu/obs/flops.py``.
 Each count is the useful arithmetic of the textbook algorithm, not the
 executed instructions; ``log.json`` carries them as ``!<stage>_Gflops``
@@ -8,6 +9,8 @@ events (the reference re-logs backend GFLOPS self-reports the same way).
 """
 
 from __future__ import annotations
+
+from eigenkernel_tpu_torch.ops import wf_bt
 
 
 def tridiagonalize(n: int) -> float:
@@ -37,3 +40,106 @@ def back_transform_one_stage(n: int, k: int) -> float:
 def back_transform_two_stage(n: int, k: int) -> float:
     # chase-Q (4 n^2 k) + band-Q (4 n^2 k)
     return 8.0 * n * n * k
+
+
+# ---- kernel bounds on the card ----------------------------------------------
+# The least time an H100 SXM could take for a kernel's work: the larger of
+# its operations over the peak rate for their type and its bytes (each
+# input read once, each output written once) over the memory rate.  Peaks
+# (NVIDIA's data sheet, dense, at the 700 W limit): 67 TFLOP/s FP64 on the
+# tensor cores and FP32 on the CUDA cores, 34 TFLOP/s FP64 on the CUDA
+# cores, 3.35 TB/s.  Only B4 is a matrix product, so only B4's float64 work
+# is held to the tensor-core rate; the scalar recurrences (B1, B2), the
+# matrix-vector products and rank-one updates (B3, B5) are held to the
+# CUDA-core rate of their type.
+
+PEAK_FP64_TENSOR = 67e12
+PEAK_FP64 = 34e12
+PEAK_FP32 = 67e12
+MEM_RATE = 3.35e12
+
+
+def _bound(ops: float, nbytes: float, peak: float):
+    """(ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / peak, nbytes / MEM_RATE
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def _cuda_core_peak(dtype) -> float:
+    return PEAK_FP64 if dtype.itemsize == 8 else PEAK_FP32
+
+
+def chase_live_lanes(n: int, b: int) -> int:
+    """Live (sweep, position) steps of the chase: sweep c at position t is
+    live while its window starts before row n - 1, c + 1 + t b < n - 1."""
+    T = n // b + 2
+    return sum(max(0, n - 2 - t * b) for t in range(T))
+
+
+def wf_bt_lane_steps(pl, u0: int = 0, u1=None):
+    """(launches, live lane-steps) of B4 over composite steps [u0, u1) of
+    the plan ``pl`` (``ops/wf_bt.py``): per step u the live groups are
+    max(0, u - Tm + 1, floor((m b u + n - 1 - g - n) / S2) + 1) ..
+    min(nG - 1, u)."""
+    S2 = pl.g + pl.m * pl.b
+    K = pl.n - 1 - pl.g
+    launches = steps = 0
+    for u in range(u0, pl.Tq2 if u1 is None else u1):
+        lo = max(0, u - pl.Tm + 1, (pl.m * pl.b * u + K - pl.n) // S2 + 1)
+        hi = min(pl.nG - 1, u)
+        if hi >= lo:
+            launches += 1
+            steps += hi - lo + 1
+    return launches, steps
+
+
+def bound_sturm(n: int, k: int, iters: int, dtype):
+    """B1: k targets x iters Sturm counts of n steps (subtract, divide,
+    subtract); reads d, e^2, the indices and bounds, writes k values."""
+    isz = dtype.itemsize
+    return _bound(3.0 * n * iters * k, (2 * n + 2 + k) * isz + 4 * k,
+                  _cuda_core_peak(dtype))
+
+
+def bound_solve(n: int, k: int, dtype):
+    """B2: k shifted tridiagonal solves, 6 operations a row forward and 3
+    back; reads d, e, the shifts and b (n x k), writes x (n x k)."""
+    isz = dtype.itemsize
+    return _bound(9.0 * n * k, (2 * n + k + 2 * n * k) * isz,
+                  _cuda_core_peak(dtype))
+
+
+def bound_chase(n: int, b: int, dtype):
+    """B3: per live lane three matrix-vector products (D v, v^T L, F v) and
+    the matching updates, 12 b^2 operations; reads and writes the
+    (n + 2b) x (2b + 1) state, writes b + 1 reflector words a lane."""
+    isz = dtype.itemsize
+    lanes = chase_live_lanes(n, b)
+    nbytes = (2 * (n + 2 * b) * (2 * b + 1) + lanes * (b + 1)) * isz
+    return _bound(12.0 * b * b * lanes, nbytes, _cuda_core_peak(dtype))
+
+
+def bound_wf_bt(n: int, k: int, b: int, g: int, dtype, u0: int = 0,
+                u1=None):
+    """B4 over composite steps [u0, u1): 2 S2^2 k operations per live
+    lane-step; reads its S2 x S2 transform once, reads and writes z once
+    (n x k).  Returns (ms, bound_by, launches, lane_steps)."""
+    isz = dtype.itemsize
+    pl = wf_bt.plan_of(n, b, n // b + 2, isz, g)
+    S2 = pl.g + pl.m * pl.b
+    launches, steps = wf_bt_lane_steps(pl, u0, u1)
+    peak = PEAK_FP64_TENSOR if isz == 8 else PEAK_FP32
+    ms, by = _bound(2.0 * S2 * S2 * k * steps,
+                    (steps * S2 * S2 + 2 * n * k) * isz, peak)
+    return ms, by, launches, steps
+
+
+def bound_chase_bt(n: int, k: int, b: int, dtype):
+    """B5: every live reflector (length b) applied to z, 4 b k operations;
+    reads the reflectors and taus, reads and writes z (n x k)."""
+    isz = dtype.itemsize
+    refl = chase_live_lanes(n, b)
+    return _bound(4.0 * b * k * refl, (refl * (b + 1) + 2 * n * k) * isz,
+                  _cuda_core_peak(dtype))

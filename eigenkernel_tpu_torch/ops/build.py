@@ -44,14 +44,16 @@ _SIGNATURES = {
                                  ctypes.c_float, _P),
     },
     "band_chase.cu": {
-        "ek_band_chase_f64": (_P, _P, _P, _I, _I, _I, _P, _P),
-        "ek_band_chase_f32": (_P, _P, _P, _I, _I, _I, _P, _P),
+        "ek_band_chase_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "ek_band_chase_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "ek_band_chase_resident_f64": (_I, _I, _P),
+        "ek_band_chase_resident_f32": (_I, _I, _P),
     },
     "wf_bt.cu": {
         "ek_wf_bt_f64": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P),
+                         _P, _P, _P),
         "ek_wf_bt_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P),
+                         _P, _P, _P),
     },
     "chase_bt.cu": {
         "ek_chase_bt_f64": (_P, _P, _P, _I, _I, _I, _I, _P),

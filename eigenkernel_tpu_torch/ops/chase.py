@@ -24,10 +24,18 @@ two-sided update, in dense terms (window D = A[p:p+b, p:p+b]):
   included), left strip ``A[p:p+b, p-b-1:p] <- H L``, bulge fill rows
   ``A[p+b:p+2b, p:p+b] <- F H``.
 
-A CUDA tensor runs ``csrc/band_chase.cu`` (one launch per step, one CTA per
-live lane); a CPU tensor runs :func:`chase_plain`, the same steps in
-PyTorch, batched over the live lanes.  ``EK_CHASE`` (the JAX package's
-schedule choice) is not ported: this is the only chase.
+A CUDA tensor runs ``csrc/band_chase.cu``: the whole chase in one
+cooperative launch of :func:`grid_size` CTAs, which stride over the live
+lanes of each step (:func:`lane_slots`) with a grid-wide barrier between
+steps; ``LAUNCHES`` counts one per chase.  Its branch (:func:`branch`)
+stages each lane's window in shared memory ("window", while
+:func:`window_words` fits in a block's 227 KB: b <= 84 in float64, b <= 119
+in float32) or works on the state in L2 ("global"); with a CTA per lane
+the window branch keeps a lane's rows in shared memory from one step to
+the next (the source note says how).  A refused launch raises.  A CPU
+tensor runs :func:`chase_plain`, the same steps in PyTorch, batched over
+the live lanes.  ``EK_CHASE`` (the JAX package's schedule choice) is not
+ported: this is the only chase.
 """
 
 from __future__ import annotations
@@ -40,10 +48,18 @@ from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _house_pivot0,
                                              _to_banded, trivial_chase)
 
-LAUNCHES = 0  # kernel launches (one per wavefront step; CPU runs add none)
+LAUNCHES = 0  # kernel launches (one per chase; CPU runs add none)
+BRANCH = ""   # the branch of the last kernel launch: "window" or "global"
+GRID = 0      # CTAs of the last kernel launch
+GRID_CAP = 0  # if > 0, at most this many CTAs (tests force lane striding)
+
+SMEM_BYTES = 232448   # shared memory a block may use on sm_90
+_THREADS = 512        # csrc/band_chase.cu kThreads
 
 _FN = {torch.float64: "ek_band_chase_f64",
        torch.float32: "ek_band_chase_f32"}
+_RESIDENT = {torch.float64: "ek_band_chase_resident_f64",
+             torch.float32: "ek_band_chase_resident_f32"}
 
 
 def n_positions(n: int, b: int) -> int:
@@ -54,6 +70,42 @@ def n_positions(n: int, b: int) -> int:
 def n_steps(n: int, b: int) -> int:
     """The wavefront steps of the chase, ``4(n-3) + T``."""
     return 4 * (n - 3) + n_positions(n, b)
+
+
+def window_words(b: int) -> int:
+    """Shared-memory words of the kernel's window branch: rows [p, p+2b)
+    at a pitch of 2b + 2, and the scratch v, dv, cl, cr, one word per warp
+    and two scalars (``band_chase.cu::window_words``)."""
+    return 2 * b * (2 * b + 2) + 4 * b + 1 + _THREADS // 32 + 2
+
+
+def branch(b: int, dtype: torch.dtype) -> str:
+    """"window" where a lane's window fits in a block's shared memory,
+    else "global"."""
+    return ("window" if window_words(b) * dtype.itemsize <= SMEM_BYTES
+            else "global")
+
+
+def max_lanes(n: int, b: int) -> int:
+    """The most lanes a step can hold: t = tau%4 + 4j <= T - 1."""
+    return (n_positions(n, b) + 3) // 4
+
+
+def grid_size(n: int, b: int, resident: int, cap: int = 0) -> int:
+    """CTAs of the persistent launch: no more than the lanes of a step, nor
+    than can be co-resident (``resident``), nor than ``cap`` if set."""
+    grid = min(max_lanes(n, b), resident)
+    if cap > 0:
+        grid = min(grid, cap)
+    return max(1, grid)
+
+
+def lane_slots(j0: int, j1: int, block: int, grid: int) -> list:
+    """The lanes j in [j0, j1] that CTA ``block`` of ``grid`` runs: those
+    with j = block (mod grid), so that a grid of at least
+    :func:`max_lanes` CTAs keeps every lane on one CTA from step to step
+    (and its window rows in shared memory)."""
+    return [j for j in range(block, j1 + 1, grid) if j >= j0]
 
 
 def _live_lanes(tau: int, n: int, b: int, T: int):
@@ -172,7 +224,7 @@ def band_to_tridiag(band: torch.Tensor, bw: int) -> ChaseResult:
     """Reduce a symmetric band matrix (semibandwidth ``bw``, dense storage)
     to tridiagonal.  A CUDA tensor runs the CUDA kernel, a CPU tensor the
     plain version."""
-    global LAUNCHES
+    global LAUNCHES, BRANCH, GRID
     _check(band)
     if band.device.type == "cpu":
         return band_to_tridiag_plain(band, bw)
@@ -184,11 +236,20 @@ def band_to_tridiag(band: torch.Tensor, bw: int) -> ChaseResult:
     lb, hv, ht = _state(band, bw)
     lib = build.library()
     name = _FN[band.dtype]
-    launched = ctypes.c_int(0)
+    br = branch(bw, band.dtype)
+    resident = ctypes.c_int(0)
+    build.check(getattr(lib, _RESIDENT[band.dtype])(
+        bw, int(br == "window"), ctypes.byref(resident)), name)
+    if resident.value < 1:
+        raise build.KernelLaunchError(f"{name}: no block of the {br} branch "
+                                      f"fits on {band.device}")
+    grid = grid_size(n, bw, resident.value, GRID_CAP)
+    bar = torch.zeros(1, dtype=torch.int32, device=band.device)
     stream = torch.cuda.current_stream(band.device).cuda_stream
     status = getattr(lib, name)(lb.data_ptr(), hv.data_ptr(), ht.data_ptr(),
-                                n, bw, hv.shape[1], ctypes.byref(launched),
-                                stream)
+                                bar.data_ptr(), n, bw, hv.shape[1],
+                                int(br == "window"), grid, stream)
     build.check(status, name)
-    LAUNCHES += launched.value
+    LAUNCHES += 1
+    BRANCH, GRID = br, grid
     return _result(lb, hv, ht, n, bw)

@@ -20,9 +20,17 @@ back-transform.  The schedule, as there:
 solves and GEMMs, outside the kernel as in JAX), in phases of composite
 steps under a byte budget: at n = 16384, g = 64 the whole stream is
 (Tm + nG - 1) nG S2^2 words, 17 GB in float64.  Per phase, a CUDA tensor
-runs ``csrc/wf_bt.cu`` (one launch per composite step, one CTA per live
-lane and column tile, :func:`apply_phase`); a CPU tensor runs
-:func:`apply_phase_plain`, one ``torch.bmm`` over the live lanes per step.
+runs ``csrc/wf_bt.cu`` (:func:`apply_phase`: one launch per composite
+step; for S2 <= 128 one CTA per live lane and column split, which keeps
+the lane's P in shared memory and walks its tiles of z, else one CTA per
+live lane and column tile with P streamed (``BRANCH`` says which ran);
+float64 on the FP64 tensor cores (DMMA), float32 in register tiles on the
+CUDA cores); a CPU tensor runs :func:`apply_phase_plain`, one
+``torch.bmm`` over the live lanes per step.  The kernel sums in another
+order than cuBLAS, so the two agree to rounding, not bit for bit.  Its
+bound at n = 16384, k = 500, b = g = 64 is 8.1 ms of arithmetic
+(``obs/flops.py::bound_wf_bt``: 512 launches, 33,152 lane-steps of
+2 S2^2 k operations at 67 TFLOP/s).
 
 ``EK_BT_GROUP`` sets g (default 64); m follows the JAX package's rule,
 the largest m with S2 <= 128 (at least 1, at most T), so a narrow band
@@ -43,6 +51,7 @@ from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _wy_embed,
                                              group_stores)
 
 LAUNCHES = 0  # kernel launches (one per composite step with live lanes)
+BRANCH = ""   # the kernel's branch at the last launch: "resident"/"streamed"
 STREAM_BYTES = 2 * 2 ** 30   # byte budget of one phase of the P stream
 
 _FN = {torch.float64: "ek_wf_bt_f64", torch.float32: "ek_wf_bt_f32"}
@@ -133,8 +142,13 @@ def plan(res: ChaseResult, z: torch.Tensor, group: int = 0) -> Plan:
     """The :class:`Plan` for ``z <- Q2 z`` (module doc for g and m); each
     phase holds at most :data:`STREAM_BYTES` of the P stream, or one
     composite step where that is larger."""
-    n = z.shape[0]
-    T, b = res.HV.shape[1], res.HV.shape[2]
+    return plan_of(z.shape[0], res.HV.shape[2], res.HV.shape[1],
+                   z.element_size(), group)
+
+
+def plan_of(n: int, b: int, T: int, itemsize: int, group: int = 0) -> Plan:
+    """:func:`plan` from the shapes: n rows of z, bandwidth b, T band
+    positions, ``itemsize`` bytes a word."""
     nsweeps = n - 2
     g = group or int(os.environ.get("EK_BT_GROUP", "0")) or 64
     g = min(g, nsweeps)
@@ -143,7 +157,7 @@ def plan(res: ChaseResult, z: torch.Tensor, group: int = 0) -> Plan:
     S2 = g + m * b
     Tm = -(-T // m)
     Tq2 = Tm + nG - 1
-    nph = max(1, -(-Tq2 * nG * S2 * S2 * z.element_size() // STREAM_BYTES))
+    nph = max(1, -(-Tq2 * nG * S2 * S2 * itemsize // STREAM_BYTES))
     tc = -(-Tq2 // min(nph, Tq2))      # at least one composite step a phase
     nph = -(-Tq2 // tc)
     # live windows start at frame rows >= 2 and end before top + n + S2
@@ -198,7 +212,7 @@ def apply_phase(P: torch.Tensor, zp: torch.Tensor, pl: Plan,
     """Apply one phase of the P stream to the z frame ``zp`` in place: the
     CUDA kernel on a CUDA tensor, :func:`apply_phase_plain` on a CPU
     tensor."""
-    global LAUNCHES
+    global LAUNCHES, BRANCH
     if zp.device.type == "cpu":
         return apply_phase_plain(P, zp, pl, u0)
     if zp.device.type != "cuda":
@@ -209,14 +223,15 @@ def apply_phase(P: torch.Tensor, zp: torch.Tensor, pl: Plan,
                          "expected")
     lib = build.library()
     name = _FN[zp.dtype]
-    launched = ctypes.c_int(0)
+    launched, resident = ctypes.c_int(0), ctypes.c_int(0)
     stream = torch.cuda.current_stream(zp.device).cuda_stream
     status = getattr(lib, name)(P.data_ptr(), zp.data_ptr(), zp.shape[1],
                                 pl.n, pl.b, pl.g, pl.m, pl.nG, pl.Tm, pl.top,
                                 u0, P.shape[0], ctypes.byref(launched),
-                                stream)
+                                ctypes.byref(resident), stream)
     build.check(status, name)
     LAUNCHES += launched.value
+    BRANCH = "resident" if resident.value else "streamed"
 
 
 def frame(z: torch.Tensor, pl: Plan) -> torch.Tensor:

@@ -121,6 +121,79 @@ def test_chase_kernel_matches_plain_on_card(cuda_device, dtype, n, bw):
         assert float((got.HT - plain.HT).abs().max()) <= 1e-8
 
 
+def _check_chase(got, bnd, dtype):
+    plain = chase.band_to_tridiag_plain(bnd, got.bw)
+    lam = np.linalg.eigvalsh(bnd.double().cpu().numpy())
+    scale = np.abs(lam).max()
+    bar = 1e-12 if dtype == torch.float64 else 5e-5
+    assert np.abs(_spectrum(got) - lam).max() <= bar * scale
+    assert np.abs(_spectrum(got) - _spectrum(plain)).max() <= bar * scale
+    if dtype == torch.float64:
+        assert float((got.d - plain.d).abs().max()) <= 1e-10 * scale
+        assert float((got.e - plain.e).abs().max()) <= 1e-10 * scale
+        assert float((got.HT - plain.HT).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_chase_global_branch_past_the_window_limit_on_card(cuda_device):
+    # b = 128 in float64: a lane's window needs 267 KB, more than a block has
+    n, bw, dtype = 600, 128, torch.float64
+    assert chase.branch(bw, dtype) == "global"
+    bnd = _chase_input(n, bw, 11, dtype, cuda_device)
+    before = chase.LAUNCHES
+    got = chase.band_to_tridiag(bnd, bw)
+    torch.cuda.synchronize()
+    assert chase.LAUNCHES == before + 1
+    assert chase.BRANCH == "global"
+    _check_chase(got, bnd, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chase_ctas_stride_over_lanes_on_card(cuda_device, monkeypatch,
+                                              dtype):
+    # n = 600, b = 8: up to 20 lanes a step on 3 CTAs
+    n, bw = 600, 8
+    monkeypatch.setattr(chase, "GRID_CAP", 3)
+    assert chase.max_lanes(n, bw) > 3
+    bnd = _chase_input(n, bw, 12, dtype, cuda_device)
+    got = chase.band_to_tridiag(bnd, bw)
+    torch.cuda.synchronize()
+    assert chase.GRID == 3 and chase.BRANCH == "window"
+    _check_chase(got, bnd, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,bw,g,k", [(200, 8, 0, 1), (200, 8, 0, 33),
+                                      (200, 8, 0, 130), (200, 3, 7, 70),
+                                      (200, 3, 7, 33), (300, 100, 64, 33),
+                                      (300, 100, 64, 130)])
+def test_wf_bt_kernel_edges_on_card(cuda_device, monkeypatch, dtype, n, bw,
+                                    g, k):
+    # k = 1, odd k and k past one column tile; S2 = 127 (b = 3, g = 7);
+    # S2 = 164 (b = 100, g = 64) runs the streamed branch
+    monkeypatch.delenv("EK_BT_GROUP", raising=False)
+    res = chase.band_to_tridiag_plain(
+        _chase_input(n, bw, n + k, dtype, cuda_device), bw)
+    z = torch.tensor(np.random.default_rng(k).standard_normal((n, k)),
+                     dtype=dtype, device=cuda_device)
+    pl = wf_bt.plan(res, z, g)
+    if g == 7:
+        assert pl.g + pl.m * pl.b == 127
+    before = wf_bt.LAUNCHES
+    got = wf_bt.apply_chase_q_wavefront(res, z, g)
+    torch.cuda.synchronize()
+    assert wf_bt.LAUNCHES > before
+    S2 = pl.g + pl.m * pl.b
+    assert wf_bt.BRANCH == ("resident" if S2 <= 128 else "streamed")
+    ref = wf_bt.apply_chase_q_wavefront_plain(res, z, g)
+    bar = 1e-12 if dtype == torch.float64 else 5e-6
+    scale = float(ref.abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= bar * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("n,bw,g,m,nbytes", [
