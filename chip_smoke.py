@@ -11,13 +11,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    with nvcc and print the build time.
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes (n = 4096 random tridiagonal, the 500 lowest indices,
-   float64 and float32), timed with CUDA events.
+   float64 and float32), timed with CUDA events: B1 (Sturm bisection) and
+   B2 (the shifted tridiagonal solve) must equal them bit for bit.  B1 is
+   also timed at 1 and 2 warps a target (trees of depth 5 and 6 a pass)
+   for 4, 500 and 4096 targets, with its time per pass and per row step,
+   and beside one float64 ``torch.linalg.eigvalsh`` of the densified
+   tridiagonal (its library time; the port never calls it).
 4. Main path: the CLI, in process, solves the 500 lowest eigenpairs of a
    sparse symmetric n = 4096 matrix (bandwidth 64 plus random long-range
    couplings, as in the ELSES tight-binding matrices) with
    ``-s scalapack_select``, in float64 and float32; residual,
    orthogonality and eigenvalues against ``torch.linalg.eigvalsh`` must
-   meet their bars, and both kernels must have been launched.
+   meet their bars, and both kernels must have been launched.  The
+   float64 solve then runs once more (outside the launch count), so that
+   its stage table shows what the first solve of the process paid to
+   start cuBLAS and cuSOLVER.
 5. Full spectrum: ``EK_TRIDIAG=bisect -s scalapack`` at n = 2048, float64.
 6. The two-stage kernels against their plain versions on the card: the
    bulge chase (B3) on the band of a random symmetric n = 4096 matrix at
@@ -29,11 +37,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``EK_SELECT_CORE=two_stage -s scalapack_select`` for the 500 lowest
    eigenpairs of an ELSES-style n = 16384 matrix, float64 and float32,
    against one float64 ``torch.linalg.eigvalsh`` of the matrix; B3 and B4
-   must have been launched.  B4 is then held against its plain version on
-   the operands the path gave it (recorded during the run), whole and
-   phase by phase (the stream build, the kernel and the per-step
-   ``torch.bmm``, each timed apart), and, in float64, B3 against its plain
-   version on the band of that matrix.
+   must have been launched.  B1, B2 and B4 are then held against their
+   plain versions on the operands the path gave them (recorded during the
+   run): B1 and B2 bit for bit, timed; B4 whole and phase by phase (the
+   stream build, the kernel and the per-step ``torch.bmm``, each timed
+   apart); and, in float64, B3 against its plain version on the band of
+   that matrix.
 8. Full spectrum through the two-stage core: ``EK_TRIDIAG=bisect -s
    eigensx`` at n = 4096, float64 (B4 at k = n, then held against its plain
    version on the path's operands, whole and phase by phase).
@@ -47,9 +56,10 @@ path do not count.  The second-to-last line is a JSON object with one
 entry per kernel: its time, its plain version's, its bound
 (``eigenkernel_tpu_torch/obs/flops.py``: the larger of its operations
 over the card's peak and its bytes over the memory rate, with what bounds
-it) and, for B4, the per-step ``torch.bmm`` (``library_ms``; null for the
-others, which no one PyTorch call computes), in float64 at the shape named
-in the entry; the last line is ``{"ok": true, "device": {...}}``.
+it) and the time of one PyTorch call of the same function where there is
+one (``library_ms``: ``eigvalsh`` for B1, the per-step ``torch.bmm`` for
+B4; null for the others), in float64 at the shape named in the entry; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,14 +135,16 @@ def env(**values):
 
 
 @contextlib.contextmanager
-def capture(module, name):
+def capture(module, name, limit=None):
     """Record the positional arguments of every call of ``module.name``
-    made inside the block; the calls themselves run unchanged."""
+    made inside the block (of the first ``limit`` calls, if given); the
+    calls themselves run unchanged."""
     calls = []
     fn = getattr(module, name)
 
     def recording(*args, **kwargs):
-        calls.append(args)
+        if limit is None or len(calls) < limit:
+            calls.append(args)
         return fn(*args, **kwargs)
 
     setattr(module, name, recording)
@@ -159,17 +171,117 @@ def read_launches() -> dict:
             "chase_bt": backtransform.LAUNCHES}
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, batches: int = 5) -> float:
+    """Milliseconds a call of ``fn``: the median over ``batches`` batches
+    of ``reps`` calls each, timed with CUDA events."""
+    import statistics
+
     import torch
 
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reads now, in MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout
+    return float(out.split()[0])
+
+
+def sturm_passes(iters: int, warps: int) -> int:
+    """B1's passes over the rows at ``warps`` warps a target."""
+    from eigenkernel_tpu_torch.ops import sturm
+
+    return len(sturm.round_depths(iters, sturm.depth_of(warps)))
+
+
+def compare_sturm(d, e, idx, lo, hi, iters, reps, label):
+    """B1 on these operands against its plain version, bit for bit; its
+    time, per pass of the rows and per dependent row step."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import sturm
+
+    tag = "f64" if d.dtype == torch.float64 else "f32"
+    n, k = d.shape[0], idx.shape[0]
+    warps = sturm.warps_per_target(
+        k, torch.cuda.get_device_properties(d.device).multi_processor_count)
+
+    def run():
+        return sturm.sturm_bisect(d, e, idx, lo, hi, iters)
+
+    lam = run()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = time_ms(run, reps)
+    mhz = sm_clock_mhz()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    lam_plain = sturm.sturm_bisect_plain(d, e, idx, lo, hi, iters)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    err = float((lam - lam_plain).abs().max())
+    passes = sturm_passes(iters, warps)
+    ns_step = 1e6 * ms / (passes * n)
+    print(f"sturm_bisect {tag} {label}: n={n} k={k} iters={iters}, "
+          f"{warps} warps a target, {passes} passes: kernel {ms:.3f} ms "
+          f"({1e3 * ms / passes:.1f} us a pass, {ns_step:.2f} ns = "
+          f"{ns_step * mhz / 1e3:.1f} cycles at {mhz:.0f} MHz a row step), "
+          f"plain {plain_ms:.1f} ms, max |dlam| {err:.3e} (bar: equal)")
+    check(torch.equal(lam, lam_plain),
+          f"sturm_bisect {tag} {label} kernel == plain bit for bit")
+    return lam, {"n": n, "k": k, "iters": iters, "dtype": tag, "ms": ms,
+                 "plain_ms": plain_ms, "max_abs_err": err, "passes": passes,
+                 "warps": warps, "ns_per_step": ns_step,
+                 "sm_mhz": mhz}
+
+
+def compare_solve(d, e, lam, b, tiny, reps, label):
+    """B2 on these operands against its plain version, bit for bit."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import tridiag_solve
+
+    tag = "f64" if d.dtype == torch.float64 else "f32"
+    n, k = b.shape
+
+    def run():
+        return tridiag_solve.tridiag_solve(d, e, lam, b, tiny)
+
+    x = run()
+    torch.cuda.synchronize()
+    ms = time_ms(run, reps)
+    mhz = sm_clock_mhz()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    x_plain = tridiag_solve.tridiag_solve_plain(d, e, lam, b, tiny)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    err = float((x - x_plain).abs().max())
+    ns_row = 1e6 * ms / (2 * n)
+    print(f"tridiag_solve {tag} {label}: n={n} k={k}, kernel {ms:.3f} ms "
+          f"({ns_row:.2f} ns = {ns_row * mhz / 1e3:.1f} cycles at {mhz:.0f} "
+          f"MHz a row of either sweep), plain {plain_ms:.1f} ms, max |dx| "
+          f"{err:.3e} (bar: equal)")
+    check(bool(torch.isfinite(x).all()) and torch.equal(x, x_plain),
+          f"tridiag_solve {tag} {label} kernel == plain bit for bit")
+    return {"n": n, "k": k, "dtype": tag, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ns_per_row": ns_row, "sm_mhz": mhz}
 
 
 def phase_kernels(dev):
@@ -177,7 +289,7 @@ def phase_kernels(dev):
     import numpy as np
     import torch
 
-    from eigenkernel_tpu_torch.ops import sturm, tridiag_solve
+    from eigenkernel_tpu_torch.ops import sturm
     from eigenkernel_tpu_torch.ops.tridiag import (gershgorin_bounds,
                                                    pivot_floor)
 
@@ -186,65 +298,55 @@ def phase_kernels(dev):
     d_np, e_np = rng.standard_normal(n), rng.standard_normal(n - 1)
     b_np = rng.standard_normal((n, k))
     out = {"sturm": {}, "solve": {}}
-    for dtype, iters, solve_tol in ((torch.float64, 62, 1e-10),
-                                    (torch.float32, 30, 1e-4)):
+    for dtype, iters in ((torch.float64, 62), (torch.float32, 30)):
         tag = "f64" if dtype == torch.float64 else "f32"
         d = torch.tensor(d_np, dtype=dtype, device=dev)
         e = torch.tensor(e_np, dtype=dtype, device=dev)
         lo, hi = gershgorin_bounds(d, e)
         span = float(hi - lo)
-        eps = torch.finfo(dtype).eps
         idx = torch.arange(k, dtype=torch.int32, device=dev)
-
-        def run_kernel():
-            return sturm.sturm_bisect(d, e, idx, lo, hi, iters)
-
-        lam = run_kernel()
-        torch.cuda.synchronize()
-        ms = time_ms(run_kernel, 5)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        lam_plain = sturm.sturm_bisect_plain(d, e, idx, lo, hi, iters)
-        t1.record()
-        torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        err = float((lam - lam_plain).abs().max())
-        bar = 2.0 ** -iters * span + 8 * eps * span
-        print(f"sturm_bisect {tag}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms, max |dlam| {err:.3e} (bar {bar:.3e})")
-        check(err <= bar, f"sturm_bisect {tag} kernel == plain")
-        out["sturm"][tag] = {"ms": ms, "plain_ms": plain_ms,
-                             "max_abs_err": err}
+        lam, out["sturm"][tag] = compare_sturm(d, e, idx, lo, hi, iters, 5,
+                                               "random T")
+        # the tree depth a pass covers, 1 or 2 warps a target, for few,
+        # the path's and as many targets as rows: the lowest 500 the same
+        # bits as the plain version, either depth the same bits as the
+        # other
+        by_warps = {}
+        for kk in (4, k, n):
+            ii = torch.arange(kk, dtype=torch.int32, device=dev)
+            got = {w: sturm._launch(d, e, ii, lo, hi, iters, w)
+                   for w in (1, sturm.MAX_WARPS)}
+            check(torch.equal(got[1], got[sturm.MAX_WARPS])
+                  and torch.equal(got[1][:k], lam[:kk]),
+                  f"sturm_bisect {tag} k={kk} at 1 and {sturm.MAX_WARPS} "
+                  f"warps a target == plain")
+            for w in got:
+                ms = time_ms(lambda: sturm._launch(d, e, ii, lo, hi, iters,
+                                                   w), 5)
+                by_warps[f"k={kk} warps={w}"] = ms
+                ns_step = 1e6 * ms / (sturm_passes(iters, w) * n)
+                print(f"sturm_bisect {tag} k={kk}, {w} warps a target: "
+                      f"{ms:.3f} ms ({ns_step:.2f} ns = "
+                      f"{ns_step * out['sturm'][tag]['sm_mhz'] / 1e3:.1f} "
+                      f"cycles a row step)")
+        out["sturm"][tag]["ms_by_warps"] = by_warps
+        if dtype == torch.float64:
+            # the library call for B1's function: every eigenvalue of the
+            # densified T (the port never calls it)
+            tri = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+            torch.linalg.eigvalsh(tri)
+            torch.cuda.synchronize()
+            lib_ms = time_ms(lambda: torch.linalg.eigvalsh(tri), 3)
+            print(f"library: torch.linalg.eigvalsh of T, n={n}: "
+                  f"{lib_ms:.3f} ms")
+            out["sturm"][tag]["library_ms"] = lib_ms
+            del tri
 
         shifts = lam + 1e-3 * span
         b = torch.tensor(b_np, dtype=dtype, device=dev)
         tiny = pivot_floor(d, e)       # the floor inverse iteration passes
-
-        def run_solve():
-            return tridiag_solve.tridiag_solve(d, e, shifts, b, tiny)
-
-        x = run_solve()
-        torch.cuda.synchronize()
-        ms = time_ms(run_solve, 10)
-        t0.record()
-        x_plain = tridiag_solve.tridiag_solve_plain(d, e, shifts, b, tiny)
-        t1.record()
-        torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        xn = x / torch.linalg.vector_norm(x, dim=0)
-        pn = x_plain / torch.linalg.vector_norm(x_plain, dim=0)
-        # sign-fix each column by its largest entry in the plain solution
-        piv = pn.abs().argmax(dim=0, keepdim=True)
-        xn = xn * torch.sign(xn.gather(0, piv))
-        pn = pn * torch.sign(pn.gather(0, piv))
-        err = float((xn - pn).abs().max())
-        print(f"tridiag_solve {tag}: kernel {ms:.3f} ms, plain {plain_ms:.1f} "
-              f"ms, max |dx| (normalized) {err:.3e} (bar {solve_tol:g})")
-        check(bool(torch.isfinite(x).all()) and err <= solve_tol,
-              f"tridiag_solve {tag} kernel == plain")
-        out["solve"][tag] = {"ms": ms, "plain_ms": plain_ms,
-                             "max_abs_err": err}
+        out["solve"][tag] = compare_solve(d, e, shifts, b, tiny, 10,
+                                          "random T")
     return out
 
 
@@ -317,6 +419,14 @@ def phase_main(dev, tmp):
     print(f"launches on the main path: {launches}")
     check(launches["sturm"] > 0 and launches["solve"] > 0,
           "both kernels launched on the main path")
+    # the float64 solve again: the first one of the process also started
+    # cuBLAS and cuSOLVER
+    work = os.path.join(tmp, "main_float64_again")
+    os.makedirs(work)
+    out = run_cli(work, ["-s", "scalapack_select", "-n", str(K_MAIN),
+                         "-c", str(K_MAIN), "-t", f"1,{K_MAIN}",
+                         "--dtype", "float64", path])
+    check_run(work, out, ref, K_MAIN, "float64 again", 1e-12, 1e-10, 1e-10)
     return launches
 
 
@@ -623,12 +733,14 @@ def phase_twostage_select(dev, tmp):
     import torch
 
     from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
-    from eigenkernel_tpu_torch.ops import band, wf_bt
+    from eigenkernel_tpu_torch.ops import band, sturm, tridiag_solve, wf_bt
+    from eigenkernel_tpu_torch.ops.tridiag import INVIT_STEPS
     from eigenkernel_tpu_torch.solvers import twostage
 
     mat, path = write_elses(tmp, N_TWO, seed=3)
     ref = reference_eigvalsh(mat, dev)
-    launches, checks = {}, {"chase": [], "wf_bt": [], "wf_bt_phases": []}
+    launches, checks = {}, {"chase": [], "wf_bt": [], "wf_bt_phases": [],
+                            "sturm": [], "solve": []}
     for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
                              ("float32", (1e-5, 1e-3, 1e-4))):
         work = os.path.join(tmp, f"two_{dtype_name}")
@@ -636,14 +748,26 @@ def phase_twostage_select(dev, tmp):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         with env(EK_SELECT_CORE="two_stage"), \
-                capture(twostage, "apply_chase_q_wavefront") as calls:
+                capture(twostage, "apply_chase_q_wavefront") as calls, \
+                capture(sturm, "sturm_bisect") as b1_calls, \
+                capture(tridiag_solve, "tridiag_solve", 1) as b2_calls:
             out = run_cli(work, ["-s", "scalapack_select", "-n", str(K_TWO),
                                  "-c", str(K_TWO), "-t", f"1,{K_TWO}",
                                  "--dtype", dtype_name, path])
+        solves = read_launches()["solve"]
         add_launches(launches)
         print(f"  peak device memory {dtype_name}: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_run(work, out, ref, K_TWO, f"{dtype_name} two-stage", *bars)
+        # B1 and B2 on the tridiagonal, targets, shifts and start block
+        # the path gave them (the first of its inverse-iteration solves;
+        # the peak above includes that recorded start block, n k words)
+        check(len(b1_calls) == 1 and solves == INVIT_STEPS,
+              f"the path called B1 once and B2 {INVIT_STEPS} times")
+        checks["sturm"].append(compare_sturm(*b1_calls.pop(), 2,
+                                             "path operands")[1])
+        checks["solve"].append(compare_solve(*b2_calls.pop(), 3,
+                                             "path operands"))
         # B4 on the chase result and eigenvectors the path gave it
         check(len(calls) == 1, "the path called B4 once")
         res, z = calls.pop()[:2]
@@ -665,8 +789,9 @@ def phase_twostage_select(dev, tmp):
             del band_m
         torch.cuda.empty_cache()
     print(f"launches on the two-stage selecting path: {launches}")
-    check(launches["chase"] > 0 and launches["wf_bt"] > 0,
-          "B3 and B4 launched on the two-stage selecting path")
+    check(launches["chase"] > 0 and launches["wf_bt"] > 0
+          and launches["sturm"] > 0 and launches["solve"] > 0,
+          "B1, B2, B3 and B4 launched on the two-stage selecting path")
     return launches, checks
 
 
@@ -770,7 +895,8 @@ def main() -> int:
                     chase_bt=launches_b5["chase_bt"])
 
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
-    # n = 4096, k = 500; B3 and B4 on the n = 16384 two-stage select path's
+    # n = 4096, k = 500 (and on the n = 16384 path's operands under
+    # "path_checks"); B3 and B4 on the n = 16384 two-stage select path's
     # own band and operands; B5 at phase 6's n = 4096, k = 500; float64
     from eigenkernel_tpu_torch.obs import flops
 

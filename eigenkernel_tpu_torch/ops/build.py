@@ -31,17 +31,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# source -> {C function: argtypes}; every function returns cudaError_t as int
+# source -> {C function: argtypes}; every function returns an int: a
+# launch's cudaError_t, or a getter's value
 _SIGNATURES = {
     "sturm_bisect.cu": {
-        "ek_sturm_bisect_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-        "ek_sturm_bisect_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "ek_sturm_bisect_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "ek_sturm_bisect_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "ek_sturm_max_warps": (),
     },
     "tridiag_solve.cu": {
         "ek_tridiag_solve_f64": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  ctypes.c_double, _P),
         "ek_tridiag_solve_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  ctypes.c_float, _P),
+        "ek_tridiag_solve_rows": (),
     },
     "band_chase.cu": {
         "ek_band_chase_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

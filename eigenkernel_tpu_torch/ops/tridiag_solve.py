@@ -2,9 +2,11 @@
 
 Counterpart of ``eigenkernel_tpu/ops/pallas_solve.py::tridiag_solve_pallas``
 (the inner step of inverse iteration).  The CUDA kernel
-(``csrc/tridiag_solve.cu``) runs one thread per system over row-major
-(n, k) operands; :func:`tridiag_solve_plain` runs the same LU recurrences
-in PyTorch, one row of k systems at a time, and is what a CPU tensor gets.
+(``csrc/tridiag_solve.cu``) runs one thread per system and one warp of 32
+systems per block over row-major (n, k) operands, with the rows it reads
+staged in shared memory ``ROWS`` at a time, ahead of the sweep;
+:func:`tridiag_solve_plain` runs the same LU recurrences in PyTorch, one
+row of k systems at a time, and is what a CPU tensor gets.
 
     forward:  l = e_{i-1}/u_{i-1};  u_i = (d_i - lam) - e_{i-1} l  (floored)
               y_i = b_i - l y_{i-1}
@@ -18,6 +20,7 @@ import torch
 from eigenkernel_tpu_torch.ops import build
 
 LAUNCHES = 0  # kernel launches by tridiag_solve (CPU tensors do not count)
+ROWS = 64     # rows of a chunk the kernel stages (csrc kRows)
 
 _FN = {torch.float64: "ek_tridiag_solve_f64",
        torch.float32: "ek_tridiag_solve_f32"}

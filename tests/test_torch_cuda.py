@@ -28,31 +28,78 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _sturm_input(spectrum, k, dtype, device):
+    if spectrum == "degenerate":           # repeated d, zero e
+        d_np = np.concatenate([np.full(30, 1.5), np.linspace(2, 3, 30)])
+        e_np = np.zeros(59)
+    else:
+        d_np, e_np = _rand_tridiag(700, 5)
+    n = d_np.shape[0]
+    idx = (np.arange(k) * 7) % n          # out of order, repeats past n
+    return (torch.tensor(d_np, dtype=dtype, device=device),
+            torch.tensor(e_np, dtype=dtype, device=device),
+            torch.tensor(idx, dtype=torch.int32, device=device))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("spectrum", ["random", "degenerate"])
+@pytest.mark.parametrize("k", [1, 33, 500])
 @pytest.mark.parametrize("dtype,iters", [(torch.float64, 62),
-                                         (torch.float32, 30)])
-def test_sturm_kernel_matches_plain_on_card(cuda_device, dtype, iters):
-    d_np, e_np = _rand_tridiag(700, 5)
-    d = torch.tensor(d_np, dtype=dtype, device=cuda_device)
-    e = torch.tensor(e_np, dtype=dtype, device=cuda_device)
+                                         (torch.float32, 30),
+                                         (torch.float64, 7),
+                                         (torch.float32, 7)])
+def test_sturm_kernel_matches_plain_on_card(cuda_device, dtype, iters, k,
+                                            spectrum):
+    # the kernel counts at the points one-step bisection visits, several
+    # levels a pass: the same bits, at depths the pass does not divide
+    d, e, idx = _sturm_input(spectrum, k, dtype, cuda_device)
     lo, hi = gershgorin_bounds(d, e)
-    idx = torch.arange(0, 700, 3, dtype=torch.int32, device=cuda_device)
     before = sturm.LAUNCHES
     lam = sturm.sturm_bisect(d, e, idx, lo, hi, iters)
     torch.cuda.synchronize()
     assert sturm.LAUNCHES == before + 1
-    plain = sturm.sturm_bisect_plain(d, e, idx, lo, hi, iters)
-    span = float(hi - lo)
-    eps = torch.finfo(dtype).eps
-    assert float((lam - plain).abs().max()) <= \
-        2.0 ** -iters * span + 8 * eps * span
+    assert torch.equal(lam, sturm.sturm_bisect_plain(d, e, idx, lo, hi,
+                                                     iters))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, sturm.MAX_WARPS])
+@pytest.mark.parametrize("dtype,iters", [(torch.float64, 62),
+                                         (torch.float32, 13)])
+def test_sturm_kernel_tree_depths_on_card(cuda_device, warps, dtype, iters):
+    # 1 or 2 warps a target: trees of depth 5 or 6 a pass
+    d, e, idx = _sturm_input("random", 37, dtype, cuda_device)
+    lo, hi = gershgorin_bounds(d, e)
+    lam = sturm._launch(d, e, idx, lo, hi, iters, warps)
+    torch.cuda.synchronize()
+    assert torch.equal(lam, sturm.sturm_bisect_plain(d, e, idx, lo, hi,
+                                                     iters))
+
+
+@pytest.mark.cuda
+def test_layouts_match_kernel_sources(cuda_device):
+    # the Python copies of the kernels' layout constants, which the tests
+    # above take their edge cases from, are the sources' own
+    from eigenkernel_tpu_torch.ops import build
+
+    lib = build.library()
+    assert lib.ek_sturm_max_warps() == sturm.MAX_WARPS
+    assert lib.ek_tridiag_solve_rows() == tridiag_solve.ROWS
+    d, e, idx = _sturm_input("random", 3, torch.float64, cuda_device)
+    lo, hi = gershgorin_bounds(d, e)
+    with pytest.raises(build.KernelLaunchError):
+        sturm._launch(d, e, idx, lo, hi, 62, 2 * sturm.MAX_WARPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 31, 33, 130])
+@pytest.mark.parametrize("n", [1, 2, tridiag_solve.ROWS - 1,
+                               tridiag_solve.ROWS + 1, 513])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_solve_kernel_matches_plain_on_card(cuda_device, dtype):
+def test_solve_kernel_matches_plain_on_card(cuda_device, dtype, n, k):
+    # ragged last chunk (n = 1, R +- 1) and last warp (k = 1, 31, 33,
+    # 130); k = 31 and 33 take single-element copies, k = 1 too in float64
     rng = np.random.default_rng(2)
-    n, k = 513, 130
     args = [torch.tensor(x, dtype=dtype, device=cuda_device) for x in (
         rng.standard_normal(n), rng.standard_normal(n - 1),
         rng.standard_normal(k) * 0.1, rng.standard_normal((n, k)))]
@@ -65,6 +112,27 @@ def test_solve_kernel_matches_plain_on_card(cuda_device, dtype):
         assert tridiag_solve.LAUNCHES == before + 1
         plain = tridiag_solve.tridiag_solve_plain(*args, tiny)
         assert torch.equal(x, plain)      # same roundings, no fused products
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solve_kernel_unaligned_rhs_on_card(cuda_device, dtype):
+    # b one element past a 16-byte boundary: single-element copies though
+    # k is a multiple of the 16-byte vector
+    rng = np.random.default_rng(4)
+    n, k = 200, 128
+    flat = torch.tensor(rng.standard_normal(n * k + 1), dtype=dtype,
+                        device=cuda_device)
+    b = flat[1:].view(n, k)
+    assert b.is_contiguous() and b.data_ptr() % 16 != 0
+    d, e, lam = (torch.tensor(x, dtype=dtype, device=cuda_device) for x in (
+        rng.standard_normal(n), rng.standard_normal(n - 1),
+        rng.standard_normal(k) * 0.1))
+    tiny = pivot_floor(d, e)
+    x = tridiag_solve.tridiag_solve(d, e, lam, b, tiny)
+    torch.cuda.synchronize()
+    assert torch.equal(x, tridiag_solve.tridiag_solve_plain(d, e, lam, b,
+                                                            tiny))
 
 
 @pytest.mark.cuda

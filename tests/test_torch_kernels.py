@@ -69,6 +69,81 @@ def test_sturm_bisect_matches_pallas(case):
     assert np.abs(lam - ref[idx]).max() < scipy_tol
 
 
+def _tree_case(case, dtype):
+    d, e = _degenerate() if case == "degenerate" else _rand_tridiag(45, 8)
+    n = d.shape[0]
+    idx = (np.arange(11) * 7) % n                    # k odd, out of order
+    td, te = torch.tensor(d.astype(dtype)), torch.tensor(e.astype(dtype))
+    return td, te, torch.tensor(idx, dtype=torch.int32), idx
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("iters", [7, 13])
+def test_sturm_bisect_matches_pallas_bitwise(iters, dtype):
+    # depths that 5 (the kernel's pass) does not divide; odd k.  From the
+    # same bounds the plain version and the Pallas kernel agree bit for bit
+    td, te, ti, idx = _tree_case("random", dtype)
+    lo, hi = gershgorin_bounds(td, te)
+    lam = sturm.sturm_bisect(td, te, ti, lo, hi, iters).numpy()
+    ref = np.asarray(jax_sturm_bisect(
+        jnp.asarray(td.numpy()), jnp.asarray(te.numpy()), jnp.asarray(idx),
+        jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()), iters=iters,
+        interpret=True))
+    assert lam.dtype == ref.dtype and np.array_equal(lam, ref)
+
+
+@pytest.mark.parametrize("case", ["random", "degenerate"])
+@pytest.mark.parametrize("depth", [5, 6])
+@pytest.mark.parametrize("iters,dtype", [(7, np.float64), (13, np.float64),
+                                         (62, np.float64), (30, np.float32)])
+def test_kernel_passes_pick_the_intervals_of_bisection(iters, dtype, depth,
+                                                       case):
+    # the kernel's schedule (a tree of 2^depth - 1 counts per pass, walked
+    # level by level) ends every pass on the interval one-step bisection
+    # reaches after as many steps, to the last bit
+    td, te, ti, _ = _tree_case(case, dtype)
+    lo, hi = gershgorin_bounds(td, te)
+    steps = sturm.bisection_rounds(td, te, ti, lo, hi, iters, depth=1)
+    passes = sturm.bisection_rounds(td, te, ti, lo, hi, iters, depth)
+    walks = sturm.round_depths(iters, depth)
+    assert len(passes) == -(-iters // depth) and sum(walks) == iters
+    for (p_lo, p_hi), done in zip(passes, np.cumsum(walks)):
+        s_lo, s_hi = steps[done - 1]
+        assert torch.equal(p_lo, s_lo) and torch.equal(p_hi, s_hi)
+    lam = 0.5 * (passes[-1][0] + passes[-1][1])
+    assert torch.equal(lam, sturm.sturm_bisect_plain(td, te, ti, lo, hi,
+                                                     iters))
+
+
+def test_tree_node_indexing():
+    assert [sturm.tree_node(j) for j in (0, 1, 2, 3, 6, 30, 31, 62)] == [
+        (0, 0), (1, 0), (1, 1), (2, 0), (2, 3), (4, 15), (5, 0), (5, 31)]
+    for j in range(63):
+        level, pos = sturm.tree_node(j)
+        assert sturm.tree_node(2 * j + 1) == (level + 1, 2 * pos)
+        assert sturm.tree_node(2 * j + 2) == (level + 1, 2 * pos + 1)
+    assert [sturm.depth_of(w) for w in (1, sturm.MAX_WARPS)] == [5, 6]
+    assert sturm.round_depths(62, 5) == [5] * 12 + [2]
+    assert sturm.round_depths(30, 5) == [5] * 6
+    assert sturm.round_depths(62, 6) == [6] * 10 + [2]
+    assert sturm.round_depths(30, 6) == [6] * 5
+    assert sturm.round_depths(3, 5) == [3]
+    # a node's point lies strictly inside the interval, in heap order
+    pts = sturm.node_points(torch.tensor([0.0]), torch.tensor([1.0]), 3)
+    assert pts[:, 0].tolist() == [0.5, 0.25, 0.75, 0.125, 0.375, 0.625,
+                                  0.875]
+
+
+@pytest.mark.parametrize("k,sms,warps", [
+    (500, 132, 2), (1, 132, 2), (132, 132, 2), (264, 132, 2),
+    (528, 132, 2), (529, 132, 1), (4096, 132, 1), (32, 8, 2), (33, 8, 1),
+    (500, 8, 1)])
+def test_warps_per_target_fill_the_card(k, sms, warps):
+    # 2 warps a target while k blocks keep within 8 warps an SM, else 1
+    assert sturm.WARPS_PER_SM == 8 and sturm.MAX_WARPS == 2
+    assert sturm.warps_per_target(k, sms) == warps
+
+
 @pytest.mark.parametrize("n,k,dtype,tol", [
     (300, 20, np.float64, 1e-12),
     (257, 3, np.float64, 1e-12),
