@@ -32,7 +32,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the default bandwidth 64 (d, e, the reflectors, the spectrum, and
    ``Q2 tridiag(d, e) Q2^T`` against the band), and both chase
    back-transforms (B4, B5) on its reflectors with z of 500 columns,
-   float64 and float32.
+   float64 and float32; B5 with its plan (g, tile width, CTAs, µs a block)
+   and also at g = 16, 32 and 64.
 7. Two-stage selecting path at its real size: the CLI runs
    ``EK_SELECT_CORE=two_stage -s scalapack_select`` for the 500 lowest
    eigenpairs of an ELSES-style n = 16384 matrix, float64 and float32,
@@ -41,12 +42,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    plain versions on the operands the path gave them (recorded during the
    run): B1 and B2 bit for bit, timed; B4 whole and phase by phase (the
    stream build, the kernel and the per-step ``torch.bmm``, each timed
-   apart); and, in float64, B3 against its plain version on the band of
-   that matrix.
+   apart); B5 on B4's operands, beside B4's whole call; and, in float64,
+   B3 against its plain version on the band of that matrix.
 8. Full spectrum through the two-stage core: ``EK_TRIDIAG=bisect -s
    eigensx`` at n = 4096, float64 (B4 at k = n, then held against its plain
    version on the path's operands, whole and phase by phase).
-9. The per-sweep back-transform on the path: ``EK_BACKTRANSFORM=pallas``
+9. The WY-block back-transform (B5) on the path: ``EK_BACKTRANSFORM=pallas``
    with ``-s eigensx`` at n = 2048, float64; B5 must have been launched,
    and is then held against its plain version on the path's operands.
 
@@ -58,8 +59,9 @@ entry per kernel: its time, its plain version's, its bound
 over the card's peak and its bytes over the memory rate, with what bounds
 it) and the time of one PyTorch call of the same function where there is
 one (``library_ms``: ``eigvalsh`` for B1, the per-step ``torch.bmm`` for
-B4; null for the others), in float64 at the shape named in the entry; the
-last line is ``{"ok": true, "device": {...}}``.
+B4, B4's whole plain version (P stream and ``torch.bmm``) for B5; null
+for B2 and B3), in float64 at the shape named in the entry; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -605,6 +607,56 @@ def compare_bt(name, run, run_plain, res, z, reps=1):
             "max_abs_err": err}
 
 
+def compare_chase_bt(res, z, label, reps=1, groups=()):
+    """B5 on ``(res, z)`` against its plain version (the bars of
+    compare_bt), with its plan: g, tile width, CTAs, blocks, µs a block
+    and its bound; with ``groups``, also at each g there (the private
+    launcher), each held at the same bar."""
+    import torch
+
+    from eigenkernel_tpu_torch.obs import flops
+    from eigenkernel_tpu_torch.ops import backtransform, bulge
+
+    tag = "f64" if z.dtype == torch.float64 else "f32"
+    n, k = z.shape
+    bar = 1e-12 if tag == "f64" else 5e-6
+    t0 = time.time()
+    ref = bulge.apply_chase_q(res, z)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    zs = float(ref.abs().max())
+    bound_ms, bound_by = flops.bound_chase_bt(n, k, res.HV.shape[2], z.dtype)
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    runs = [(backtransform.GROUP, backtransform.apply_chase_q_sweeps)]
+    runs += [(g, lambda r, zz, g=g: backtransform._launch(r, zz, g))
+             for g in groups]
+    out = {"n": n, "k": k, "dtype": tag, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "by_group": {}}
+    for i, (group, fn) in enumerate(runs):
+        got = fn(res, z)
+        torch.cuda.synchronize()
+        pl = backtransform.plan_of(n, res.HV.shape[2], res.HV.shape[1], k,
+                                   z.element_size(), group, 0, sms)
+        ms = time_ms(lambda: fn(res, z), reps)
+        err = float((got - ref).abs().max())
+        print(f"chase_bt {tag}{label} g={pl.g}: n={n} k={k}, tile {pl.nc} "
+              f"columns, {pl.ctas} CTAs, {pl.blocks} blocks: kernel "
+              f"{ms:.3f} ms ({1e3 * ms / pl.blocks:.3f} us a block), plain "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+              f"max |dz| {err:.3e} (bar {bar:g} * {zs:.3g})")
+        check(bool(torch.isfinite(got).all()) and err <= bar * zs,
+              f"chase_bt {tag} g={pl.g} n={n} k={k} kernel == plain")
+        row = {"ms": ms, "max_abs_err": err, "g": pl.g, "tile": pl.nc,
+               "ctas": pl.ctas, "blocks": pl.blocks,
+               "us_per_block": 1e3 * ms / pl.blocks}
+        if i == 0:
+            out.update(row)
+        else:
+            out["by_group"][str(pl.g)] = row
+        del got
+    return out
+
+
 def compare_wf_bt_phases(res, z, tag_extra=""):
     """B4 on ``(res, z)`` phase by phase: the stream build, the kernel and
     the per-step ``torch.bmm`` loop (the plain version, which is also the
@@ -661,7 +713,7 @@ def phase_twostage_kernels(dev):
     import torch
 
     from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
-    from eigenkernel_tpu_torch.ops import backtransform, band, bulge, wf_bt
+    from eigenkernel_tpu_torch.ops import band, wf_bt
 
     n, k, bw = N_KERNEL, K_KERNEL, DEFAULT_BLOCK_SIZE
     rng = np.random.default_rng(4)
@@ -713,10 +765,11 @@ def phase_twostage_kernels(dev):
                            wf_bt.apply_chase_q_wavefront_plain, res, z, 3)
         out["wf_bt"][tag].update(with_stream_ms=whole["ms"],
                                  with_stream_plain_ms=whole["plain_ms"])
-        b5 = compare_bt("chase_bt", backtransform.apply_chase_q_sweeps,
-                        bulge.apply_chase_q, res, z, 3)
-        out["chase_bt"][tag] = {key: b5[key] for key in
-                                ("ms", "plain_ms", "max_abs_err")}
+        # B5, and at each g it was chosen from; its library call is B4's
+        # whole plain version on the same operands
+        out["chase_bt"][tag] = dict(
+            compare_chase_bt(res, z, "", 3, groups=(16, 32, 64)),
+            library_ms=whole["plain_ms"])
         del res, band_m
         torch.cuda.empty_cache()
     return out
@@ -740,7 +793,7 @@ def phase_twostage_select(dev, tmp):
     mat, path = write_elses(tmp, N_TWO, seed=3)
     ref = reference_eigvalsh(mat, dev)
     launches, checks = {}, {"chase": [], "wf_bt": [], "wf_bt_phases": [],
-                            "sturm": [], "solve": []}
+                            "sturm": [], "solve": [], "chase_bt": []}
     for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
                              ("float32", (1e-5, 1e-3, 1e-4))):
         work = os.path.join(tmp, f"two_{dtype_name}")
@@ -777,6 +830,12 @@ def phase_twostage_select(dev, tmp):
             wf_bt.apply_chase_q_wavefront_plain, res, z))
         checks["wf_bt_phases"].append(
             compare_wf_bt_phases(res, z, " (path operands)"))
+        # B5 on the same operands, beside B4's whole call
+        b5 = compare_chase_bt(res, z, " (path operands)", 3)
+        b4_ms = checks["wf_bt"][-1]["ms"]
+        print(f"  n={N_TWO} k={K_TWO} {dtype_name}: B5 {b5['ms']:.3f} ms, "
+              f"B4's whole call {b4_ms:.3f} ms")
+        checks["chase_bt"].append(dict(b5, b4_whole_ms=b4_ms))
         del res, z
         if dtype_name == "float64":
             # B3 on the band of this matrix at the path's bandwidth
@@ -799,7 +858,7 @@ def phase_eigensx(dev, tmp, n, seed, bt):
     """Phases 8 and 9: ``-s eigensx`` on the full spectrum, float64; then
     the path's back-transform kernel against its plain version on the
     operands the path gave it."""
-    from eigenkernel_tpu_torch.ops import backtransform, bulge, wf_bt
+    from eigenkernel_tpu_torch.ops import wf_bt
     from eigenkernel_tpu_torch.solvers import twostage
 
     mat, path = write_elses(tmp, n, seed=seed)
@@ -808,12 +867,8 @@ def phase_eigensx(dev, tmp, n, seed, bt):
     os.makedirs(work)
     if bt == "pallas":
         key, name = "chase_bt", "apply_chase_q_sweeps"
-        run, run_plain = backtransform.apply_chase_q_sweeps, \
-            bulge.apply_chase_q
     else:
         key, name = "wf_bt", "apply_chase_q_wavefront"
-        run, run_plain = wf_bt.apply_chase_q_wavefront, \
-            wf_bt.apply_chase_q_wavefront_plain
     reset_launches()
     with env(EK_TRIDIAG="bisect", EK_BACKTRANSFORM=bt), \
             capture(twostage, name) as calls:
@@ -828,12 +883,14 @@ def phase_eigensx(dev, tmp, n, seed, bt):
               1e-10)
     check(len(calls) == 1, f"the path called {name} once")
     res, z = calls.pop()[:2]
-    out = {key: [compare_bt(f"{name} (path operands)", run, run_plain, res,
-                            z)]}
-    if key == "wf_bt":
-        out["wf_bt_phases"] = [compare_wf_bt_phases(res, z,
-                                                    " (path operands)")]
-    return launches, out
+    if key == "chase_bt":
+        return launches, {key: [compare_chase_bt(res, z,
+                                                 " (path operands)")]}
+    return launches, {
+        key: [compare_bt(f"{name} (path operands)",
+                         wf_bt.apply_chase_q_wavefront,
+                         wf_bt.apply_chase_q_wavefront_plain, res, z)],
+        "wf_bt_phases": [compare_wf_bt_phases(res, z, " (path operands)")]}
 
 
 def main() -> int:
@@ -888,7 +945,7 @@ def main() -> int:
         print(f"eigensx full spectrum: {time.time() - t0:.1f} s")
         t0 = time.time()
         launches_b5, chk = phase_eigensx(dev, tmp, N_B5, seed=6, bt="pallas")
-        path_checks.update(chk)
+        path_checks["chase_bt"] += chk["chase_bt"]
         print(f"eigensx under EK_BACKTRANSFORM=pallas: "
               f"{time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
@@ -897,7 +954,8 @@ def main() -> int:
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
     # n = 4096, k = 500 (and on the n = 16384 path's operands under
     # "path_checks"); B3 and B4 on the n = 16384 two-stage select path's
-    # own band and operands; B5 at phase 6's n = 4096, k = 500; float64
+    # own band and operands; B5 at phase 6's n = 4096, k = 500 (and on the
+    # n = 16384 and n = 2048 paths' operands under "path_checks"); float64
     from eigenkernel_tpu_torch.obs import flops
 
     f64 = torch.float64

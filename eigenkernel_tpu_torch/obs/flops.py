@@ -48,10 +48,10 @@ def back_transform_two_stage(n: int, k: int) -> float:
 # input read once, each output written once) over the memory rate.  Peaks
 # (NVIDIA's data sheet, dense, at the 700 W limit): 67 TFLOP/s FP64 on the
 # tensor cores and FP32 on the CUDA cores, 34 TFLOP/s FP64 on the CUDA
-# cores, 3.35 TB/s.  Only B4 is a matrix product, so only B4's float64 work
-# is held to the tensor-core rate; the scalar recurrences (B1, B2), the
-# matrix-vector products and rank-one updates (B3, B5) are held to the
-# CUDA-core rate of their type.
+# cores, 3.35 TB/s.  The two back-transforms (B4, B5) can run as matrix
+# products, so their float64 work is held to the tensor-core rate; the
+# scalar recurrences (B1, B2) and the chase's matrix-vector products and
+# rank-one updates (B3) are held to the CUDA-core rate of their type.
 
 PEAK_FP64_TENSOR = 67e12
 PEAK_FP64 = 34e12
@@ -137,9 +137,11 @@ def bound_wf_bt(n: int, k: int, b: int, g: int, dtype, u0: int = 0,
 
 
 def bound_chase_bt(n: int, k: int, b: int, dtype):
-    """B5: every live reflector (length b) applied to z, 4 b k operations;
-    reads the reflectors and taus, reads and writes z (n x k)."""
+    """B5: every live reflector (length b) applied to z, 4 b k operations
+    (the function's work, not the larger count of its WY form); reads the
+    reflectors and taus, reads and writes z (n x k).  float64 at the
+    tensor-core peak, as B4."""
     isz = dtype.itemsize
     refl = chase_live_lanes(n, b)
     return _bound(4.0 * b * k * refl, (refl * (b + 1) + 2 * n * k) * isz,
-                  _cuda_core_peak(dtype))
+                  PEAK_FP64_TENSOR if isz == 8 else PEAK_FP32)

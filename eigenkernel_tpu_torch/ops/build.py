@@ -59,8 +59,9 @@ _SIGNATURES = {
                          _P, _P, _P),
     },
     "chase_bt.cu": {
-        "ek_chase_bt_f64": (_P, _P, _P, _I, _I, _I, _I, _P),
-        "ek_chase_bt_f32": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "ek_chase_bt_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "ek_chase_bt_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "ek_chase_bt_smem": (_I, _I, _I, _I),
     },
 }
 SOURCES = tuple(_SIGNATURES)

@@ -15,10 +15,12 @@ sweep as one batched rank-1 update.
 
 Here live the data layout and the plain references: the chase itself runs
 in :mod:`.chase` (kernel B3), the back-transforms in :mod:`.wf_bt` (B4) and
-:mod:`.backtransform` (B5).  The sequential chase is not ported: the
-tests hold the wavefront chase against the JAX package's.  The mesh
-paths (``band_to_tridiag_chunked``, ``apply_chase_q_blocked_sharded``) and
-the XLA wavefront schedules are not ported.
+:mod:`.backtransform` (B5); :func:`apply_chase_q_blocked` is the WY-grouped
+back-transform (``EK_BACKTRANSFORM=blocked``) and the model of B5's block
+order.  The sequential chase is not ported: the tests hold the wavefront
+chase against the JAX package's.  The mesh paths
+(``band_to_tridiag_chunked``, ``apply_chase_q_blocked_sharded``) and the
+XLA wavefront schedules are not ported.
 """
 
 from __future__ import annotations
@@ -113,6 +115,53 @@ def _wy_embed(hv_desc: torch.Tensor, g: int, b: int, L: int) -> torch.Tensor:
     flat = hv_desc.reshape(*hv_desc.shape[:-2], g * b)
     y = flat[..., (j * b + q.clamp(0, b - 1))]
     return torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=dev))
+
+
+def apply_chase_q_blocked(res: ChaseResult, z: torch.Tensor,
+                          group: int = 0) -> torch.Tensor:
+    """``z <- Q2 z`` with g consecutive sweeps WY-grouped (ELPA2's trick).
+
+    At band position t the reflectors of g consecutive sweeps live in a
+    (b+g-1)-row window, shifted one row per sweep.  Groups go newest
+    first, positions in ascending t inside a group and sweeps newest first
+    inside a window: that keeps the relative order of every overlapping
+    reflector pair, so the product is exactly Q2 (the proof is in the JAX
+    module).  Per window the reversed product is applied in compact form,
+    ``P = I - Y M^{-1} Y^T`` with ``M = diag(1/tau) + tril(Y^T Y, -1)``.
+
+    ``group`` 0 means 32, the JAX package's value off the TPU; g > b would
+    make windows two positions apart overlap, so g is clamped to b.  The
+    order kernel B5 (:mod:`.backtransform`) applies its blocks in.  Returns
+    a new tensor."""
+    n, k = z.shape
+    T, b = res.HV.shape[1], res.HV.shape[2]
+    if n <= 2 or b <= 1 or res.HV.shape[0] < n:
+        return z.clone()
+    g = min(group if group > 0 else 32, b)
+    nsweeps = n - 2
+    n_groups = -(-nsweeps // g)
+    L = b + g - 1
+    # pad the sweep axis in front so the oldest group's slice start is
+    # always valid (zero reflectors are identities)
+    HVp = torch.cat([res.HV.new_zeros((g, T, b)), res.HV[:n]])
+    HTp = torch.cat([res.HT.new_zeros((g, T)), res.HT[:n]])
+    top = g + 1
+    zp = z.new_zeros((n + top + (T + 2) * b + g, k))
+    zp[top:top + n] = z
+    for s in range(n_groups * T):
+        G, t = divmod(s, T)
+        c0 = nsweeps - 1 - G * g
+        # sweeps c0-g+1 .. c0 at position t, newest (c0) first
+        hv_desc = HVp[c0 + 1:c0 + 1 + g, t].flip(0)
+        ht_desc = HTp[c0 + 1:c0 + 1 + g, t].flip(0)
+        Y = _wy_embed(hv_desc, g, b, L)                       # (L, g)
+        tau_safe = torch.where(ht_desc == 0, 1.0, ht_desc)
+        M = torch.tril(Y.T @ Y, -1) + torch.diag(1.0 / tau_safe)
+        row0 = c0 - g + 2 + t * b + top
+        zw = zp[row0:row0 + L]
+        w2 = torch.linalg.solve_triangular(M, Y.T @ zw, upper=False)
+        zw -= Y @ w2
+    return zp[top:top + n].clone()
 
 
 def group_stores(res: ChaseResult, n: int, b: int, g: int):

@@ -7,8 +7,10 @@ Counterpart of ``eigenkernel_tpu/solvers/twostage.py``:
   (:func:`.ops.chase.band_to_tridiag`);
 * ``sep:tridiag_eigh``: the tridiagonal solver of the one-stage core;
 * ``sep:back_transform``: ``z_A = Q_band (Q_chase z_T)``, the chase part by
-  kernel B4 (``EK_BACKTRANSFORM`` = ``auto`` | ``wf_pallas``, the default)
-  or B5 (``pallas``), the band part by WY GEMMs.
+  kernel B4 (``EK_BACKTRANSFORM`` = ``auto`` | ``wf_pallas``, the default),
+  B5 (``pallas``) or the WY-grouped PyTorch loop ``blocked`` (its group
+  ``EK_BT_GROUP``, 0 for 32, as in the JAX package), the band part by WY
+  GEMMs.
 
 The bandwidth is ``EK_TWOSTAGE_BW``, else the panel width: the JAX
 package's rule off the TPU (its TPU pick of 32 and the ``n % bw`` fix-up do
@@ -25,15 +27,16 @@ from eigenkernel_tpu_torch.obs import flops as fl
 from eigenkernel_tpu_torch.ops import band as bandlib
 from eigenkernel_tpu_torch.ops import chase, tridiag as td
 from eigenkernel_tpu_torch.ops.backtransform import apply_chase_q_sweeps
+from eigenkernel_tpu_torch.ops.bulge import apply_chase_q_blocked
 from eigenkernel_tpu_torch.ops.wf_bt import apply_chase_q_wavefront
 from eigenkernel_tpu_torch.solvers.pipelines import _run
 
 # EK_BACKTRANSFORM values of the JAX package that are not ported, with
-# their ROADMAP items
+# their ROADMAP items (``blocked`` on a mesh, the JAX package's
+# apply_chase_q_blocked_sharded, comes with the mesh paths of slice 7)
 _BT_NOT_PORTED = {
     "wavefront": "the XLA wavefront back-transform is not ported: kernel B4 "
                  "(EK_BACKTRANSFORM=wf_pallas) replaces it",
-    "blocked": "apply_chase_q_blocked: ROADMAP slice 7",
 }
 
 
@@ -45,10 +48,13 @@ def back_transform(band_res: bandlib.BandResult, chase_res, z: torch.Tensor,
         z = apply_chase_q_wavefront(chase_res, z)
     elif method == "pallas":
         z = apply_chase_q_sweeps(chase_res, z)
+    elif method == "blocked":
+        z = apply_chase_q_blocked(chase_res, z,
+                                  int(os.environ.get("EK_BT_GROUP", "0")))
     else:
         raise NotImplementedError(_BT_NOT_PORTED.get(
             method, f"EK_BACKTRANSFORM={method!r}: not a back-transform of "
-                    f"this package (auto, wf_pallas, pallas)"))
+                    f"this package (auto, wf_pallas, pallas, blocked)"))
     return bandlib.apply_band_q(band_res, z, block)
 
 

@@ -66,10 +66,14 @@ def test_bounds_by_hand_at_small_shapes():
     ms, by = flops.bound_chase(20, 3, torch.float64)
     ops, nbytes = 12 * 9 * 63, (2 * 26 * 7 + 63 * 4) * 8
     assert ms == pytest.approx(max(ops / 34e12, nbytes / 3.35e12) * 1e3)
-    # B5: 4 b k operations per live reflector
+    # B5: 4 b k operations per live reflector, float64 on the tensor cores
     ms, by = flops.bound_chase_bt(20, 7, 3, torch.float32)
     ops, nbytes = 4 * 3 * 7 * 63, (63 * 4 + 2 * 20 * 7) * 4
     assert ms == pytest.approx(max(ops / 67e12, nbytes / 3.35e12) * 1e3)
+    ms, by = flops.bound_chase_bt(4096, 500, 64, torch.float64)
+    ops = 4 * 64 * 500 * flops.chase_live_lanes(4096, 64)
+    assert by == "operations"
+    assert ms == pytest.approx(ops / 67e12 * 1e3)
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 84),

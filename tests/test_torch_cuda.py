@@ -85,6 +85,11 @@ def test_layouts_match_kernel_sources(cuda_device):
     lib = build.library()
     assert lib.ek_sturm_max_warps() == sturm.MAX_WARPS
     assert lib.ek_tridiag_solve_rows() == tridiag_solve.ROWS
+    for isz in (8, 4):
+        for b, g, nc in ((3, 1, 8), (64, 64, 8), (64, 32, 16), (130, 16, 16),
+                         (16, 5, 4), (64, 32, 4), (5, 5, 8)):
+            assert lib.ek_chase_bt_smem(isz, b, g, nc) == \
+                backtransform.smem_bytes(isz, b, g, nc)
     d, e, idx = _sturm_input("random", 3, torch.float64, cuda_device)
     lo, hi = gershgorin_bounds(d, e)
     with pytest.raises(build.KernelLaunchError):
@@ -286,11 +291,60 @@ def test_back_transform_kernels_match_plain_on_card(cuda_device, monkeypatch,
     z5 = backtransform.apply_chase_q_sweeps(res, z)
     torch.cuda.synchronize()
     assert wf_bt.LAUNCHES > before[0]
-    assert backtransform.LAUNCHES == before[1] + 1
+    assert backtransform.LAUNCHES == before[1] + 2     # factors, then walk
     z4p = wf_bt.apply_chase_q_wavefront_plain(res, z, g)
     assert float((z4 - z4p).abs().max()) <= bar * scale
     assert float((z4 - ref).abs().max()) <= bar * scale
     assert float((z5 - ref).abs().max()) <= bar * scale
+
+
+def _chase_bt_input(n, bw, k, dtype, device, zero_cols):
+    """The plain chase of a random band with the given columns (and rows)
+    zeroed, which leaves windows of tau = 0 reflectors, and z (n, k)."""
+    rng = np.random.default_rng(n + bw + k)
+    a = rng.standard_normal((n, n))
+    a = np.triu(np.tril(a + a.T, bw), -bw)
+    for c in zero_cols:
+        a[c, :] = 0
+        a[:, c] = 0
+    res = chase.band_to_tridiag_plain(torch.tensor(a, dtype=dtype,
+                                                   device=device), bw)
+    z = torch.tensor(rng.standard_normal((n, k)), dtype=dtype, device=device)
+    return res, z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,bw,g,k,nc,zero_cols", [
+    (5, 3, 1, 7, 0, ()), (5, 3, 5, 1, 0, ()),
+    (130, 8, 5, 70, 4, (10, 11)), (130, 16, 1, 130, 16, ()),
+    (257, 16, 32, 7, 0, (100,)), (257, 3, 5, 130, 16, (40, 41, 42)),
+    (257, 64, 32, 70, 8, ()), (300, 64, 64, 130, 4, (7, 150)),
+    (300, 64, 16, 128, 8, ()), (300, 8, 32, 1, 0, (0, 299)),
+    (257, 16, 16, 70, 16, (3,)), (300, 96, 64, 33, 0, (40,)),
+    (260, 5, 5, 130, 8, ())])
+def test_chase_bt_kernel_matches_plain_on_card(cuda_device, dtype, n, bw, g,
+                                               k, nc, zero_cols):
+    # g = 1, 5, 32, 64 (clamped to b: 5 -> 3, 32 -> 16 or 8); n - 2 not a
+    # multiple of g (a partial last group); k = 1, odd, past one tile, a
+    # multiple of the 16-byte vector; tiles of 4, 8 and 16 columns (the
+    # plan's pick at these k is 4); odd b (no 16-byte copies of the
+    # reflectors); b = 96, g = 64; zeroed
+    # band columns give windows of tau = 0
+    res, z = _chase_bt_input(n, bw, k, dtype, cuda_device, zero_cols)
+    if zero_cols:
+        assert bool((res.HT[:n - 2] == 0).any())
+    before = backtransform.LAUNCHES
+    got = backtransform._launch(res, z, g, nc)
+    torch.cuda.synchronize()
+    assert backtransform.LAUNCHES == before + 2
+    pl = backtransform.plan_of(n, bw, res.HV.shape[1], k, z.element_size(),
+                               g, nc)
+    assert pl.g == min(g, bw) and pl.nc == (nc or 4)
+    ref = bulge.apply_chase_q(res, z)
+    bar = 1e-12 if dtype == torch.float64 else 5e-6
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= bar * float(ref.abs().max())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The port's two-stage core against the JAX package: band reduction, bulge
-chase (kernel B3's plain version), both chase back-transforms (B4's and
-B5's plain versions), ``solve`` through the two-stage core, the CLI's
-``-s eigensx`` and the ``EK_SELECT_CORE`` switch.
+chase (kernel B3's plain version), the chase back-transforms (B4's and
+B5's plain versions, the WY-grouped ``apply_chase_q_blocked`` and the
+model of B5's block schedule), ``solve`` through the two-stage core, the
+CLI's ``-s eigensx`` and the ``EK_SELECT_CORE`` switch.
 
 Inputs are made with numpy from a seed and handed to both packages.  The
 Pallas kernels run in interpret mode, once each, as the JAX package's own
@@ -18,6 +19,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg as sla
 import torch
 
 from eigenkernel_tpu.cli import main as jax_main
@@ -179,6 +181,116 @@ def test_wavefront_matches_pallas_interpret(monkeypatch):
     assert np.abs(got - z_ref).max() / scale < 5e-6
 
 
+# (n, bw, g, zeroed band columns): the tests/test_bt_blocked.py shapes;
+# g = 1, 5, b and 2b (clamped to b); n - 2 not a multiple of g (a partial
+# last group); 0 for the default (32, clamped); zeroed columns give
+# windows of tau = 0 reflectors
+_BLOCKED_CASES = [(96, 8, 4, ()), (130, 16, 16, ()), (64, 4, 3, ()),
+                  (157, 8, 5, ()), (96, 8, 1, ()), (96, 8, 5, ()),
+                  (100, 8, 8, ()), (100, 8, 16, ()), (101, 16, 0, ()),
+                  (64, 8, 5, (10, 11, 30))]
+
+
+@pytest.mark.parametrize("n,bw,g,zero_cols", _BLOCKED_CASES)
+def test_blocked_matches_jax_and_sweeps(n, bw, g, zero_cols):
+    rng = np.random.default_rng(n + bw)
+    bnd = _banded(n, bw, n + bw + g)
+    for c in zero_cols:
+        bnd[c, :] = 0
+        bnd[:, c] = 0
+    ref_res = jax_bulge.band_to_tridiag(jnp.asarray(bnd), bw=bw)
+    if zero_cols:
+        assert (np.asarray(ref_res.HT)[:n - 2] == 0).any()
+    z = rng.standard_normal((n, 11))
+    z_ref = np.asarray(jax_bulge.apply_chase_q_blocked(
+        ref_res, jnp.asarray(z), bw=bw, group=g))
+    res = convert.chase_from_numpy(ref_res.d, ref_res.e, ref_res.HV,
+                                   ref_res.HT, bw, "cpu", torch.float64)
+    got = bulge.apply_chase_q_blocked(res, torch.tensor(z), g).numpy()
+    sweeps = bulge.apply_chase_q(res, torch.tensor(z)).numpy()
+    scale = np.abs(z_ref).max()
+    assert np.abs(got - z_ref).max() <= 1e-12 * scale
+    assert np.abs(got - sweeps).max() <= 1e-12 * scale
+
+
+def test_sweeps_plain_matches_pallas_interpret():
+    # B5's plain version against the Pallas kernel it replaces, at the
+    # shape of test_pallas_kernels.py::test_apply_chase_q_pallas
+    from eigenkernel_tpu.ops.pallas_backtransform import apply_chase_q_pallas
+
+    n, bw = 96, 8
+    rng = np.random.default_rng(2)
+    ref_res = jax_bulge.band_to_tridiag(jnp.asarray(_banded(n, bw, 9)), bw)
+    z = rng.standard_normal((n, 33))
+    z_ref = np.asarray(apply_chase_q_pallas(ref_res.HV, ref_res.HT,
+                                            jnp.asarray(z), bw,
+                                            interpret=True))
+    res = convert.chase_from_numpy(ref_res.d, ref_res.e, ref_res.HV,
+                                   ref_res.HT, bw, "cpu", torch.float64)
+    before = backtransform.LAUNCHES
+    got = backtransform.apply_chase_q_sweeps(res, torch.tensor(z)).numpy()
+    assert backtransform.LAUNCHES == before
+    assert np.abs(got - z_ref).max() <= 1e-12 * np.abs(z_ref).max()
+
+
+def _schedule_order(n, b, T, g, descending=False):
+    """order[c, t]: when B5's block schedule applies reflector (c, t), or
+    -1 where it never does; ``descending`` turns the positions of each
+    group around (a wrong order, to show the check can fail)."""
+    blocks = list(backtransform.block_schedule(n, b, T, g))
+    if descending:
+        blocks.sort(key=lambda blk: (blk[0], -blk[1]))
+    order = np.full((n, T), -1)
+    pos = 0
+    for _, t, c0, _ in blocks:
+        for c in range(c0, max(c0 - g, -1), -1):      # newest sweep first
+            assert order[c, t] == -1
+            order[c, t] = pos
+            pos += 1
+    return order[:n - 2]
+
+
+def _keeps_sweep_order(order, b):
+    """Whether every overlapping pair (c, t), (c - dc, t + dt), dc > 0
+    (windows c + 1 + t b, b rows each, less than b rows apart) that both
+    run is applied newer sweep first, as in the sweep-by-sweep product."""
+    ns, T = order.shape
+    for dc in range(1, ns):
+        for dt in range(dc // b - 1, dc // b + 2):
+            if abs(dc - dt * b) >= b:
+                continue
+            t_lo, t_hi = max(0, -dt), min(T, T - dt)
+            if t_lo >= t_hi:
+                continue
+            newer = order[dc:, t_lo:t_hi]
+            older = order[:ns - dc, t_lo + dt:t_hi + dt]
+            both = (newer >= 0) & (older >= 0)
+            if (newer[both] > older[both]).any():
+                return False
+    return True
+
+
+@pytest.mark.parametrize("b", [3, 8, 16])
+@pytest.mark.parametrize("n", [5, 96, 157])
+def test_block_schedule_keeps_the_sweep_order(n, b):
+    T = n // b + 2
+    c = np.arange(n - 2)[:, None]
+    t = np.arange(T)[None, :]
+    live = c + 1 + t * b < n          # windows that start inside z
+    for g in range(1, b + 1):         # every g the kernel allows
+        order = _schedule_order(n, b, T, g)
+        assert (order[live] >= 0).all()
+        assert _keeps_sweep_order(order, b)
+        pl = backtransform.plan_of(n, b, T, 1, 8, g)
+        assert pl.g == g and pl.blocks == sum(
+            1 for _ in backtransform.block_schedule(n, b, T, g))
+    if n > 2 * b:
+        # the check catches a wrong order: positions descending in a group
+        assert not _keeps_sweep_order(_schedule_order(n, b, T, b, True), b)
+    # g > b is clamped, as in the JAX package
+    assert backtransform.plan_of(n, b, T, 1, 8, 2 * b).g == b
+
+
 def _resid_max(a, w, v):
     v = np.asarray(v, np.float64)
     w = np.asarray(w, np.float64)
@@ -238,7 +350,31 @@ def test_select_core_env_pins_the_core(monkeypatch):
         assert "sep:full_to_band" not in names
 
 
-@pytest.mark.parametrize("method", ["wavefront", "blocked", "nope"])
+@pytest.mark.parametrize("solver,k,env", [
+    ("eigensx", None, {"EK_TRIDIAG": "bisect"}),
+    ("scalapack_select", 15, {"EK_SELECT_CORE": "two_stage",
+                              "EK_BT_GROUP": "5"})])
+def test_blocked_back_transform_through_solve(monkeypatch, solver, k, env):
+    for var in ("EK_TRIDIAG", "EK_SELECT_CORE", "EK_BT_GROUP"):
+        monkeypatch.delenv(var, raising=False)
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    monkeypatch.setenv("EK_BACKTRANSFORM", "blocked")
+    n = 110
+    a = _sym(n, 17)
+    got = solve(torch.tensor(a), solver=solver, n_vec=k)
+    assert got.meta["core"] == "two_stage"
+    kk = n if k is None else k
+    w, v = convert.eigenpairs_to_numpy(got)
+    w_ref = sla.eigh(a, eigvals_only=True)[:kk]
+    norm2 = np.abs(w_ref).max()
+    assert v.shape == (n, kk)
+    assert np.abs(w - w_ref).max() <= 1e-12 * norm2
+    assert _resid_max(a, w, v) <= 1e-14
+    assert np.abs(v.T @ v - np.eye(kk)).max() <= 1e-12
+
+
+@pytest.mark.parametrize("method", ["wavefront", "nope"])
 def test_unported_back_transforms_raise(monkeypatch, method):
     monkeypatch.setenv("EK_SELECT_CORE", "two_stage")
     monkeypatch.setenv("EK_BACKTRANSFORM", method)
