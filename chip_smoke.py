@@ -49,7 +49,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    version on the path's operands, whole and phase by phase).
 9. The WY-block back-transform (B5) on the path: ``EK_BACKTRANSFORM=pallas``
    with ``-s eigensx`` at n = 2048, float64; B5 must have been launched,
-   and is then held against its plain version on the path's operands.
+   and is then held against its plain version on the path's operands
+   (and timed beside B4's whole plain version, its library call).
+10. Full spectrum through divide and conquer: the CLI runs ``-s
+    scalapack`` at n = 4096, float64 and float32, with ``EK_TRIDIAG``
+    unset, then ``-s lapack`` and ``-s eigensx`` (float64), each against
+    the bars of phase 4; D1 (the deflation scans, ``csrc/dc_deflate.cu``)
+    must have been launched once a tree level.  D1 is then held against
+    its plain version (``torch.equal`` on every record) on the operands
+    each level of the scalapack runs gave it, timed beside its bound (the
+    step latency from ``tools/div_chain.py``, run in phase 2); the whole
+    ``tridiag_dc`` is timed beside one ``torch.linalg.eigh`` of T, and one
+    run of it is traced with torch.profiler (kernels, D1's device time).
+11. Generalized problems at n = 4096: an ELSES-style A and an SPD overlap
+    B of the same sparsity; ``general_scalapacknew_eigens`` (float64,
+    float32), ``general_elpa2`` and ``general_scalapack_select -n 500``
+    (float64), by the B-metric residual and orthogonality of the port's
+    verifier and against eigenvalues the smoke forms from its own float64
+    Cholesky of B; each path's kernels must have been launched.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -60,8 +77,8 @@ over the card's peak and its bytes over the memory rate, with what bounds
 it) and the time of one PyTorch call of the same function where there is
 one (``library_ms``: ``eigvalsh`` for B1, the per-step ``torch.bmm`` for
 B4, B4's whole plain version (P stream and ``torch.bmm``) for B5; null
-for B2 and B3), in float64 at the shape named in the entry; the last line
-is ``{"ok": true, "device": {...}}``.
+for B2, B3 and D1), in float64 at the shape named in the entry; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -83,6 +100,8 @@ N_FULL = 2048
 N_TWO, K_TWO = 16384, 500      # the ROADMAP's selecting target
 N_SX = 4096                    # eigensx, full spectrum
 N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
+N_DC = 4096                    # full spectrum through divide and conquer
+N_GEN, K_GEN = 4096, 500       # generalized problems
 
 
 class SmokeFailure(RuntimeError):
@@ -157,20 +176,20 @@ def capture(module, name, limit=None):
 
 
 def reset_launches():
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, sturm,
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, sturm,
                                            tridiag_solve, wf_bt)
 
-    for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform):
+    for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform, dc):
         mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, sturm,
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, sturm,
                                            tridiag_solve, wf_bt)
 
     return {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES,
             "chase": chase.LAUNCHES, "wf_bt": wf_bt.LAUNCHES,
-            "chase_bt": backtransform.LAUNCHES}
+            "chase_bt": backtransform.LAUNCHES, "deflate": dc.LAUNCHES}
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -249,6 +268,24 @@ def compare_sturm(d, e, idx, lo, hi, iters, reps, label):
                  "plain_ms": plain_ms, "max_abs_err": err, "passes": passes,
                  "warps": warps, "ns_per_step": ns_step,
                  "sm_mhz": mhz}
+
+
+def eigvalsh_ms(d, e):
+    """The library call for B1's function: one float64
+    ``torch.linalg.eigvalsh`` of the densified tridiagonal (every
+    eigenvalue), after a warm-up call; the port never calls it."""
+    import torch
+
+    tri = torch.diag(d.double()) + torch.diag(e.double(), 1) \
+        + torch.diag(e.double(), -1)
+    torch.linalg.eigvalsh(tri)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: torch.linalg.eigvalsh(tri), 1, batches=1)
+    print(f"library: torch.linalg.eigvalsh of T, n={d.shape[0]}: "
+          f"{ms:.3f} ms")
+    del tri
+    torch.cuda.empty_cache()
+    return ms
 
 
 def compare_solve(d, e, lam, b, tiny, reps, label):
@@ -400,8 +437,11 @@ def check_run(workdir, out, ref, k, dtype_name, resid_bar, orth_bar,
         events = json.load(f)["events"]
     print(f"  stage table ({dtype_name}):")
     for ev_ in events:
-        if ev_["name"].startswith(("sep:", "!sep:", "main:eigen_solver")):
+        if ev_["name"].lstrip("!").startswith(
+                ("sep:", "solve:", "reduce_", "recovery_",
+                 "main:eigen_solver")):
             print(f"    {ev_['name']:36s} {ev_['val']:.6f}")
+    return {e_["name"]: e_["val"] for e_ in events}
 
 
 def phase_main(dev, tmp):
@@ -817,8 +857,11 @@ def phase_twostage_select(dev, tmp):
         # the peak above includes that recorded start block, n k words)
         check(len(b1_calls) == 1 and solves == INVIT_STEPS,
               f"the path called B1 once and B2 {INVIT_STEPS} times")
-        checks["sturm"].append(compare_sturm(*b1_calls.pop(), 2,
+        b1_args = b1_calls.pop()
+        checks["sturm"].append(compare_sturm(*b1_args, 2,
                                              "path operands")[1])
+        if dtype_name == "float64":
+            checks["sturm"][-1]["library_ms"] = eigvalsh_ms(*b1_args[:2])
         checks["solve"].append(compare_solve(*b2_calls.pop(), 3,
                                              "path operands"))
         # B4 on the chase result and eigenvectors the path gave it
@@ -884,13 +927,250 @@ def phase_eigensx(dev, tmp, n, seed, bt):
     check(len(calls) == 1, f"the path called {name} once")
     res, z = calls.pop()[:2]
     if key == "chase_bt":
-        return launches, {key: [compare_chase_bt(res, z,
-                                                 " (path operands)")]}
+        # B5's library call: B4's whole plain version (P stream and one
+        # torch.bmm a step), the same function
+        lib_ms = time_ms(lambda: wf_bt.apply_chase_q_wavefront_plain(res, z),
+                         1, batches=3)
+        print(f"library: B4's whole plain version on these operands: "
+              f"{lib_ms:.3f} ms")
+        return launches, {key: [dict(compare_chase_bt(
+            res, z, " (path operands)"), library_ms=lib_ms)]}
     return launches, {
         key: [compare_bt(f"{name} (path operands)",
                          wf_bt.apply_chase_q_wavefront,
                          wf_bt.apply_chase_q_wavefront_plain, res, z)],
         "wf_bt_phases": [compare_wf_bt_phases(res, z, " (path operands)")]}
+
+
+def compare_deflate(levels, tag, step_ns):
+    """D1 against its plain version, ``torch.equal`` on every record, on
+    the operands each level of a path's divide and conquer gave it; each
+    level timed with CUDA events beside its bound.  Returns the sums over
+    the levels (one tridiag_dc) and the levels."""
+    import torch
+
+    from eigenkernel_tpu_torch.obs import flops
+    from eigenkernel_tpu_torch.ops import dc
+
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                       "max_abs_err": 0.0, "chain_ms": 0.0}
+    for args in levels:
+        ds, us, alive, tol = args
+        nb, K = ds.shape
+        got = dc.deflate_scan(*args)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: dc.deflate_scan(*args), 3)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain = dc.deflate_scan_plain(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        err = max(float((getattr(got, f).double()
+                         - getattr(plain, f).double()).abs().max())
+                  for f in dc.Deflation._fields)
+        check(all(torch.equal(getattr(got, f), getattr(plain, f))
+                  for f in dc.Deflation._fields),
+              f"dc_deflate {tag} nb={nb} K={K} kernel == plain bit for bit")
+        bound_ms, bound_by = flops.bound_deflate(nb, K, ds.dtype, step_ns)
+        rot = int(got.rot_m.sum())
+        print(f"dc_deflate {tag}: nb={nb} K={K}, {rot} rotations, deepest "
+              f"chain {int(got.depths.max())}: kernel {ms:.4f} ms "
+              f"({1e6 * ms / K:.1f} ns a step), plain {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append({"nb": nb, "K": K, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "rotations": rot})
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms),
+                         ("chain_ms", 1e-6 * K * step_ns)):
+            total[key] += val
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+    total["bound_by"] = "operations" if all(
+        r["bound_by"] == "operations" for r in rows) else "bytes"
+    return dict(total, dtype=tag, levels=rows)
+
+
+def profile_dc(d, e):
+    """One ``tridiag_dc`` under torch.profiler: the kernels it launched on
+    the card, D1's device time and the device time of all of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eigenkernel_tpu_torch.ops import dc
+
+    dc.tridiag_dc(d, e)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        dc.tridiag_dc(d, e)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(1 for ev in prof.events()
+                   if ev.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaLaunchKernelExC"))
+    busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
+    d1_us = sum(ev.time_range.elapsed_us() for ev in kernels
+                if "dc_deflate" in ev.name)
+    out = {"wall_s": wall, "device_kernels": len(kernels),
+           "launch_calls": launches, "device_busy_ms": busy_us / 1e3,
+           "d1_ms": d1_us / 1e3}
+    print(f"profile of one tridiag_dc n={d.shape[0]} {d.dtype}: {wall:.4f} s"
+          f", {len(kernels)} kernels on the card ({launches} launch calls), "
+          f"device busy {busy_us / 1e3:.3f} ms, D1 {d1_us / 1e3:.3f} ms")
+    return out
+
+
+def phase_dc(dev, tmp, chains):
+    """Phase 10: the full spectrum through divide and conquer: -s
+    scalapack (float64, float32), lapack and eigensx at n = 4096; then D1
+    against its plain version on the scalapack runs' operands, the whole
+    tridiag_dc against one eigh of T, and one profiled tridiag_dc."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import dc
+    from eigenkernel_tpu_torch.tools import div_chain
+
+    os.environ.pop("EK_TRIDIAG", None)
+    mat, path = write_elses(tmp, N_DC, seed=7)
+    ref = reference_eigvalsh(mat, dev)
+    levels = dc._tree_shape(N_DC)[1]
+    launches, scans, tri, out = {}, {}, {}, {"stages": {}, "peak_gib": {}}
+    for dtype_name, bars in (("float64", (1e-12, 1e-10, 1e-10)),
+                             ("float32", (1e-5, 1e-3, 1e-4))):
+        work = os.path.join(tmp, f"dc_{dtype_name}")
+        os.makedirs(work)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with capture(dc, "deflate_scan") as calls, \
+                capture(dc, "tridiag_dc") as dc_calls:
+            cli_out = run_cli(work, ["-s", "scalapack", "-c", "-1", "-t",
+                                     f"1,{N_DC}", "--dtype", dtype_name,
+                                     path])
+        got = read_launches()
+        add_launches(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  launches: {got}; peak device memory {peak:.2f} GiB")
+        check(got["deflate"] == levels,
+              f"{dtype_name} scalapack launched D1 once a level ({levels})")
+        out["stages"][f"scalapack {dtype_name}"] = check_run(
+            work, cli_out, ref, N_DC, f"{dtype_name} scalapack", *bars)
+        out["peak_gib"][dtype_name] = peak
+        scans[dtype_name] = calls
+        tri[dtype_name] = dc_calls[0][:2]
+    for solver, want in (("lapack", ()), ("eigensx", ("chase", "wf_bt",
+                                                      "deflate"))):
+        work = os.path.join(tmp, f"dc_{solver}")
+        os.makedirs(work)
+        reset_launches()
+        cli_out = run_cli(work, ["-s", solver, "-c", "-1", "-t",
+                                 f"1,{N_DC}", path])
+        got = read_launches()
+        print(f"  launches: {got}")
+        check(all(got[k] > 0 for k in want),
+              f"{solver} launched {', '.join(want) or 'no kernel'}")
+        if solver == "eigensx":
+            launches["deflate"] += got["deflate"]
+        out["stages"][f"{solver} float64"] = check_run(
+            work, cli_out, ref, N_DC, f"float64 {solver}", 1e-12, 1e-10,
+            1e-10)
+    # D1 on the path's operands, each level; its bound from this card's
+    # measured step latency
+    out["deflate"] = {}
+    for dtype_name, tag in (("float64", "f64"), ("float32", "f32")):
+        step = div_chain.step_ns(chains, "deflate", tag)
+        out["deflate"][tag] = compare_deflate(scans[dtype_name], tag, step)
+        out["deflate"][tag]["step_ns"] = step
+    # the whole divide and conquer beside one eigh of the densified T (the
+    # library call for the stage), and one profiled run
+    for dtype_name, tag in (("float64", "f64"), ("float32", "f32")):
+        d, e = tri[dtype_name]
+        dc_ms = time_ms(lambda: dc.tridiag_dc(d, e), 1, batches=3)
+        t = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+        torch.linalg.eigh(t)
+        eigh_ms = time_ms(lambda: torch.linalg.eigh(t), 1, batches=3)
+        print(f"tridiag_dc {tag} n={N_DC}: {dc_ms:.3f} ms; "
+              f"torch.linalg.eigh of T: {eigh_ms:.3f} ms")
+        out["deflate"][tag].update(tridiag_dc_ms=dc_ms, eigh_ms=eigh_ms)
+        del t
+    out["profile"] = profile_dc(*tri["float64"])
+    print(f"launches on the divide-and-conquer paths: {launches}")
+    return launches, out
+
+
+def overlap_like(mat, seed):
+    """An SPD overlap matrix B with the sparsity of ``mat``: off-diagonal
+    entries 0.2 e^(-|i-j|/16) N(0, 1), each diagonal entry 1 + the sum of
+    its row's off-diagonal magnitudes (strictly diagonally dominant)."""
+    import numpy as np
+
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+
+    rng = np.random.default_rng(seed)
+    rows, cols = mat.rows, mat.cols
+    off = rows != cols
+    vals = np.where(off, 0.2 * np.exp(-np.abs(rows - cols) / 16.0)
+                    * rng.standard_normal(rows.size), 0.0)
+    rowsum = np.zeros(mat.size)
+    np.add.at(rowsum, rows[off], np.abs(vals[off]))
+    np.add.at(rowsum, cols[off], np.abs(vals[off]))
+    vals[~off] = 1.0 + rowsum[rows[~off]]
+    return SparseMatrix(mat.size, rows, cols, vals)
+
+
+def phase_generalized(dev, tmp):
+    """Phase 11: generalized problems at n = 4096 against a reference the
+    smoke forms itself (its own float64 Cholesky of B on the card)."""
+    import torch
+
+    from eigenkernel_tpu_torch.io.matrix_market import write_matrix
+
+    os.environ.pop("EK_TRIDIAG", None)
+    mat, path_a = write_elses(tmp, N_GEN, seed=8)
+    mat_b = overlap_like(mat, seed=9)
+    path_b = os.path.join(tmp, f"B{N_GEN}_9.mtx")
+    write_matrix(path_b, mat_b)
+    a = torch.tensor(mat.to_dense(), device=dev)
+    b = torch.tensor(mat_b.to_dense(), device=dev)
+    l = torch.linalg.cholesky(b)
+    c = torch.linalg.solve_triangular(l, a, upper=False)
+    c = torch.linalg.solve_triangular(l, c.T, upper=False)
+    ref = torch.linalg.eigvalsh((c + c.T) / 2).cpu().numpy()
+    del a, b, l, c
+    torch.cuda.empty_cache()
+    out = {}
+    runs = (("general_scalapacknew_eigens", "float64", None, ("deflate",)),
+            ("general_scalapacknew_eigens", "float32", None, ("deflate",)),
+            ("general_elpa2", "float64", None, ("chase", "wf_bt",
+                                                 "deflate")),
+            ("general_scalapack_select", "float64", K_GEN, ("sturm",
+                                                             "solve")))
+    launches = {}
+    for solver, dtype_name, k, want in runs:
+        f64 = dtype_name == "float64"
+        kk = N_GEN if k is None else k
+        work = os.path.join(tmp, f"gen_{solver}_{dtype_name}")
+        os.makedirs(work)
+        argv = ["-s", solver, "-c", str(kk), "-t", f"1,{kk}", "--dtype",
+                dtype_name, path_a, path_b]
+        if k is not None:
+            argv = ["-n", str(k)] + argv
+        reset_launches()
+        cli_out = run_cli(work, argv)
+        got = read_launches()
+        add_launches(launches)
+        print(f"  launches: {got}")
+        check(all(got[key] > 0 for key in want),
+              f"{solver} {dtype_name} launched {', '.join(want)}")
+        out[f"{solver} {dtype_name}"] = check_run(
+            work, cli_out, ref, kk, f"{dtype_name} {solver}",
+            *((1e-12, 1e-10, 1e-10) if f64 else (1e-5, 1e-3, 1e-4)))
+    print(f"launches on the generalized paths: {launches}")
+    return launches, out
 
 
 def main() -> int:
@@ -921,6 +1201,12 @@ def main() -> int:
     for line in build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip())
+    # the latency of one step of each serial recurrence (D1's bound)
+    from eigenkernel_tpu_torch.tools import div_chain
+
+    chain_out = div_chain.run_chains()
+    print(chain_out, end="")
+    chains = div_chain.parse(chain_out)
 
     # phase 3: kernels against their plain versions
     kern = phase_kernels(dev)
@@ -948,8 +1234,16 @@ def main() -> int:
         path_checks["chase_bt"] += chk["chase_bt"]
         print(f"eigensx under EK_BACKTRANSFORM=pallas: "
               f"{time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches_dc, dc_out = phase_dc(dev, tmp, chains)
+        print(f"full spectrum through divide and conquer: "
+              f"{time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches_gen, _ = phase_generalized(dev, tmp)
+        print(f"generalized problems: {time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
-                    chase_bt=launches_b5["chase_bt"])
+                    chase_bt=launches_b5["chase_bt"],
+                    deflate=launches_dc["deflate"])
 
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
     # n = 4096, k = 500 (and on the n = 16384 path's operands under
@@ -1008,6 +1302,23 @@ def main() -> int:
                         "path_checks": path_checks.get(key, [])
                         + (path_checks["wf_bt_phases"] if key == "wf_bt"
                            else [])})
+    # D1: the six levels of one float64 tridiag_dc at n = 4096 on the
+    # scalapack path's operands; not a TPU kernel (it replaces the
+    # deflation lax.scans of the JAX function)
+    d1 = dc_out["deflate"]["f64"]
+    entries.append({"name": "dc_deflate_kernel", "route": "cuda",
+                    "source": "eigenkernel_tpu_torch/csrc/dc_deflate.cu",
+                    "replaces": "eigenkernel_tpu/ops/dc.py:222",
+                    "launches": launches["deflate"],
+                    "max_abs_err": d1["max_abs_err"], "ms": d1["ms"],
+                    "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
+                    "bound_by": d1["bound_by"], "library_ms": None,
+                    "shape": f"n={N_DC}, the {len(d1['levels'])} levels of "
+                             f"one tridiag_dc (path operands)",
+                    "dtype": "float64", "float32": dc_out["deflate"]["f32"],
+                    "path_checks": [dc_out["profile"],
+                                    {"launches_generalized":
+                                     launches_gen["deflate"]}]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ lines, output files and event names:
   device -> solve -> write eigenvalues.dat -> optional eigenvector files ->
   ipratios.dat -> optional residual / orthogonality checks -> log.json
 
-One process on one device.  Generalized problems (a B file), several
+One process on one device; a second matrix file makes a generalized
+problem (B SPD), whose checks and ipratios use the B metric.  Several
 processes (``EK_NUM_PROCESSES``), ``--mesh`` and ``--profile`` are not
 ported yet and print ``[Error] ...``; so does ``--platform cuda`` (the
 default) on a machine without a CUDA device: nothing falls back to the CPU.
@@ -55,9 +56,6 @@ def _print_select_report(values: np.ndarray, rel_tol: float = 1e-8) -> None:
 
 def _unsupported(arg) -> str | None:
     """Why this run cannot go ahead in this package, or None."""
-    if arg.is_generalized_problem:
-        return ("generalized problems (matrix B) are not ported yet "
-                "(ROADMAP slice 2)")
     if os.environ.get("EK_NUM_PROCESSES", "") not in ("", "0", "1"):
         return ("multi-process runs (EK_NUM_PROCESSES) are not ported yet "
                 "(ROADMAP slice 7)")
@@ -106,6 +104,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         arg.matrix_A_info = mm.read_header(arg.matrix_A_filename)
+        if arg.is_generalized_problem:
+            arg.matrix_B_info = mm.read_header(arg.matrix_B_filename)
     except (OSError, mm.MatrixMarketError) as exc:
         print(f"[Error] mminfo failed: {exc}", file=sys.stderr)
         return 1
@@ -127,7 +127,7 @@ def main(argv=None) -> int:
         dim = arg.matrix_A_info.rows
         try:
             arg.solver_type = resolve_auto(
-                arg.solver_type, dim, generalized=False,
+                arg.solver_type, dim, generalized=arg.is_generalized_problem,
                 selecting=arg.n_vec != dim, on_mesh=False,
                 backend=device.type)
         except UnknownSolverError as exc:
@@ -146,6 +146,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     try:
         mat_a = mm.read_matrix(arg.matrix_A_filename, arg.matrix_A_info, log)
+        mat_b = mm.read_matrix(arg.matrix_B_filename, arg.matrix_B_info,
+                               log) if arg.is_generalized_problem else None
     except (OSError, mm.MatrixMarketError) as exc:
         print(f"[Error] read_matrix_file failed: {exc}", file=sys.stderr)
         return 1
@@ -155,6 +157,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     dtype = torch.float32 if arg.dtype == "float32" else torch.float64
     a_mat = torch.from_numpy(mat_a.to_dense()).to(device=device, dtype=dtype)
+    b_mat = None if mat_b is None else \
+        torch.from_numpy(mat_b.to_dense()).to(device=device, dtype=dtype)
     if arg.is_printing_grid_mapping:
         print("Grid mapping (1 x 1):")
         print(f"  (0, 0) -> {device} {device_name}")
@@ -173,7 +177,7 @@ def main(argv=None) -> int:
     print("\n----- Solver Call -----")
     t0 = time.time()
     try:
-        pairs = solve(a_mat, solver=arg.solver_type,
+        pairs = solve(a_mat, b_mat, solver=arg.solver_type,
                       n_vec=arg.n_vec if spec.selecting else None,
                       block_size=arg.block_size, log=log,
                       dtype="mixed" if arg.dtype == "mixed" else None,
@@ -201,7 +205,7 @@ def main(argv=None) -> int:
     log.add_event("main:print_eigenpairs", time.time() - t0)
 
     t0 = time.time()
-    outputs.write_ipratios(arg.ipratios_filename, get_ipratios(pairs))
+    outputs.write_ipratios(arg.ipratios_filename, get_ipratios(pairs, b_mat))
     log.add_event("main:compute_and_print_ipratios", time.time() - t0)
 
     # --- checks
@@ -209,7 +213,7 @@ def main(argv=None) -> int:
     if arg.n_check_vec != 0:
         print("\n----- Checker Call -----")
         a_norm, rn_ave, rn_max = eval_residual_norm(a_mat, pairs,
-                                                    arg.n_check_vec)
+                                                    arg.n_check_vec, b_mat)
         print(f"A norm: {a_norm:15.8E}")
         print(f"residual norm (average): {rn_ave:15.8E}")
         print(f"residual norm (max):     {rn_max:15.8E}")
@@ -218,7 +222,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     if arg.ortho_check_index_start != 0:
         ortho = eval_orthogonality(pairs, arg.ortho_check_index_start,
-                                   arg.ortho_check_index_end)
+                                   arg.ortho_check_index_end, b_mat)
         print(f"orthogonality criterion: {ortho:15.8E}")
     log.add_event("main:eval_orthogonality", time.time() - t0)
     log.add_event("main", time.time() - t_start)

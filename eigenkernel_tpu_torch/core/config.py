@@ -61,13 +61,24 @@ class Args:
 HELP_TEXT = f"""\
 Usage: python -m eigenkernel_tpu_torch -s <solver_type> <options> <matrix_A>
 {VERSION}
-Solver types that run in this package:
-  scalapack_select (standard, selecting): Householder tridiagonalization,
-            Sturm bisection + inverse iteration, WY back-transform
-  scalapack (standard): the same core for the full spectrum; needs
-            EK_TRIDIAG=bisect until divide and conquer is ported
-  auto (standard): resolves to one of the two above
-The other names of the registry are recognised and refused.
+Solver types that run in this package (a second matrix file, B, makes a
+generalized problem):
+  scalapack (standard): Householder tridiagonalization, divide and
+            conquer, WY back-transform
+  scalapack_select (standard, selecting): the same with Sturm bisection
+            + inverse iteration for the lowest -n eigenpairs
+  eigensx (standard): two-stage reduction (full -> band -> tridiagonal)
+  lapack, eigh (standard): torch.linalg.eigh
+  auto (standard): resolves to scalapack or scalapack_select
+  general_scalapack, general_scalapack_select, general_scalapacknew_eigens,
+  general_scalapack_eigensx, general_scalapack_eigens,
+  general_elpa_scalapack, general_elpa1, general_elpa2,
+  general_elpa_eigensx, general_elpa_eigens, general_eigh (generalized):
+            Cholesky reduction (trsm, half-matrix or explicit inverse),
+            one of the cores above, recovery
+  general_auto (generalized): resolves to general_scalapacknew_eigens or
+            general_scalapack_select
+jacobi, qdwh_dc and their general_ forms are recognised and refused.
 Options are:
   -n <num>  (available with selecting solvers) Compute only <num> eigenpairs
             in ascending order of their eigenvalues
@@ -249,8 +260,15 @@ def required_memory(arg: Args) -> float:
     itemsize = 8 if arg.dtype == "float64" else 4
     nnz_a = arg.matrix_A_info.entries
     dim = float(arg.matrix_A_info.rows)
-    if arg.solver_type in ("scalapack", "scalapack_select"):
+    st = arg.solver_type
+    if st in ("lapack", "eigh"):
+        return itemsize * (nnz_a + dim * dim)
+    if st in ("scalapack", "scalapack_select"):
         return itemsize * (nnz_a + dim * dim * 2.0)
+    if st in ("general_scalapack", "general_scalapack_select",
+              "general_eigh"):
+        nnz = nnz_a + arg.matrix_B_info.entries
+        return itemsize * (nnz + dim * dim * 3.0)
     return -1.0
 
 

@@ -1,8 +1,9 @@
 """Model flop counts of the SEP cores' stages, and the bounds of the
 port's kernels on the card.
 
-The stage counts are the counterpart of the one- and two-stage parts of
-``eigenkernel_tpu/obs/flops.py``.
+The stage counts are copied from ``eigenkernel_tpu/obs/flops.py``: the
+reductions and the recovery of generalized problems, the one- and
+two-stage cores, divide and conquer and the ``eigh`` core.
 Each count is the useful arithmetic of the textbook algorithm, not the
 executed instructions; ``log.json`` carries them as ``!<stage>_Gflops``
 events (the reference re-logs backend GFLOPS self-reports the same way).
@@ -11,6 +12,29 @@ events (the reference re-logs backend GFLOPS self-reports the same way).
 from __future__ import annotations
 
 from eigenkernel_tpu_torch.ops import wf_bt
+
+
+def cholesky(n: int) -> float:
+    return n ** 3 / 3
+
+
+def invert_triangular(n: int) -> float:
+    return n ** 3 / 3
+
+
+def trmm(n: int, k: int) -> float:
+    """Triangular (n,n) times (n,k): n^2 k madds -> n^2 k flops."""
+    return float(n * n * k)
+
+
+def reduce_elpa(n: int) -> float:
+    # cholesky + invert + U^-T A (trmm) + A U^-1 (trmm)
+    return cholesky(n) + invert_triangular(n) + 2 * trmm(n, n)
+
+
+def reduce_scalapack(n: int) -> float:
+    # cholesky + two triangular solves against (n, n)
+    return cholesky(n) + 2 * trmm(n, n)
 
 
 def tridiagonalize(n: int) -> float:
@@ -24,6 +48,18 @@ def full_to_band(n: int, bw: int) -> float:
 def band_to_tridiag(n: int, bw: int) -> float:
     # ~n sweeps x (n/bw windows) x two-sided rank-1 on (bw, 3bw) tiles
     return 12.0 * n * n * bw
+
+
+def tridiag_dc(n: int) -> float:
+    # merge-tree eigenvector GEMMs: sum_l n K_l^2 ~ (4/3) n^3 madds
+    return 8 * n ** 3 / 3
+
+
+def tridiag_eigh(n: int, k: int) -> float:
+    """The ``sep:tridiag_eigh`` model of both cores: divide and conquer's
+    for half the spectrum or more, else bisection and inverse
+    iteration's, whichever tridiagonal core ran (the JAX package's rule)."""
+    return tridiag_dc(n) if 2 * k >= n else bisect_invit(n, k)
 
 
 def bisect_invit(n: int, k: int, iters: int = 62, invit_steps: int = 3):
@@ -42,6 +78,16 @@ def back_transform_two_stage(n: int, k: int) -> float:
     return 8.0 * n * n * k
 
 
+def recover(n: int, k: int) -> float:
+    return trmm(n, k)
+
+
+def eigh(n: int) -> float:
+    # dense symmetric eigensolver nominal count (the LAPACK-style
+    # 4/3 n^3 + 4 n^3)
+    return 16 * n ** 3 / 3
+
+
 # ---- kernel bounds on the card ----------------------------------------------
 # The least time an H100 SXM could take for a kernel's work: the larger of
 # its operations over the peak rate for their type and its bytes (each
@@ -51,7 +97,10 @@ def back_transform_two_stage(n: int, k: int) -> float:
 # cores, 3.35 TB/s.  The two back-transforms (B4, B5) can run as matrix
 # products, so their float64 work is held to the tensor-core rate; the
 # scalar recurrences (B1, B2) and the chase's matrix-vector products and
-# rank-one updates (B3) are held to the CUDA-core rate of their type.
+# rank-one updates (B3) are held to the CUDA-core rate of their type.  D1,
+# a serial recurrence of K steps a merge, is held to its chain: K steps of
+# one step's measured latency (tools/div_chain.py), its operations taken
+# one after another.
 
 PEAK_FP64_TENSOR = 67e12
 PEAK_FP64 = 34e12
@@ -145,3 +194,18 @@ def bound_chase_bt(n: int, k: int, b: int, dtype):
     refl = chase_live_lanes(n, b)
     return _bound(4.0 * b * k * refl, (refl * (b + 1) + 2 * n * k) * isz,
                   PEAK_FP64_TENSOR if isz == 8 else PEAK_FP32)
+
+
+def bound_deflate(nb: int, K: int, dtype, step_ns: float):
+    """D1 on one level of nb merges of K steps: the larger of its bytes
+    (reads the poles, weights, type-1 mask and tolerances; writes four
+    value planes, four index planes, two flag planes and the carries) over
+    the memory rate and its chain, K dependent steps of ``step_ns`` each
+    (the merges run side by side)."""
+    isz = dtype.itemsize
+    nbytes = nb * K * (2 * isz + 1) + nb * isz \
+        + nb * K * (4 * isz + 4 * 8 + 2) + nb * (2 * isz + 8 + 1)
+    t_chain, t_bytes = K * step_ns * 1e-9, nbytes / MEM_RATE
+    if t_chain >= t_bytes:
+        return 1e3 * t_chain, "operations"
+    return 1e3 * t_bytes, "bytes"

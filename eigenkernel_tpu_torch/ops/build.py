@@ -63,6 +63,12 @@ _SIGNATURES = {
         "ek_chase_bt_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "ek_chase_bt_smem": (_I, _I, _I, _I),
     },
+    "dc_deflate.cu": {
+        "ek_dc_deflate_f64": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P),
+        "ek_dc_deflate_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

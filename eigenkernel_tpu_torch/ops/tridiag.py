@@ -1,6 +1,9 @@
-"""Symmetric tridiagonal eigensolver: bisection + inverse iteration.
+"""Symmetric tridiagonal eigensolver: divide and conquer for the full
+spectrum, bisection + inverse iteration for a part of it.
 
-Counterpart of ``eigenkernel_tpu/ops/tridiag.py`` (the pdsyevx analog):
+Counterpart of ``eigenkernel_tpu/ops/tridiag.py``.  Divide and conquer
+(:mod:`.dc`, the pdstedc analog) takes half the spectrum or more; the
+selecting core (the pdsyevx analog) runs
 
 * eigenvalues by Sturm-count bisection (:mod:`.sturm`, the CUDA kernel
   on a CUDA tensor, its plain version on a CPU tensor),
@@ -13,9 +16,6 @@ Counterpart of ``eigenkernel_tpu/ops/tridiag.py`` (the pdsyevx analog):
   :func:`pivot_floor`),
 * CholeskyQR2 to orthonormalize the block (mixes vectors only within
   clusters, since the Gram matrix is near identity elsewhere).
-
-The divide-and-conquer core (``EK_TRIDIAG=dc``, the full-spectrum default)
-is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from typing import Optional
 
 import torch
 
-from eigenkernel_tpu_torch.ops import sturm, tridiag_solve
-from eigenkernel_tpu_torch.ops.blocked import cholesky_lower
+from eigenkernel_tpu_torch.ops import dc, sturm, tridiag_solve
+from eigenkernel_tpu_torch.ops.blocked import blocked_cholesky
 from eigenkernel_tpu_torch.ops.householder import tridiag_matrix
 
 INVIT_SEED = 7
@@ -69,7 +69,7 @@ def separate_shifts(lam: torch.Tensor, minsep) -> torch.Tensor:
 def cholqr2(v: torch.Tensor) -> torch.Tensor:
     """Orthonormalize the columns of ``v`` by two rounds of Cholesky-QR."""
     for _ in range(2):
-        l = cholesky_lower(v.T @ v)
+        l = blocked_cholesky(v.T @ v)
         # v <- v L^{-T}
         v = torch.linalg.solve_triangular(l.T, v, upper=True, left=False)
     return v
@@ -105,7 +105,8 @@ def tridiag_eigh(d: torch.Tensor, e: torch.Tensor,
     if core == "auto":
         core = "dc" if 2 * k >= n else "bisect"
     if core == "dc":
-        raise NotImplementedError("divide-and-conquer core: ROADMAP slice 1b")
+        w, z = dc.tridiag_dc(d, e)
+        return w[:k], z[:, :k]
 
     lam = bisect_eigenvalues(
         d, e, torch.arange(k, dtype=torch.int32, device=dev))

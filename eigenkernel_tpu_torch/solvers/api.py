@@ -1,11 +1,10 @@
 """Top-level ``solve`` — the ``eigen_solver`` entry point.
 
-Counterpart of the standard-problem branch of
-``eigenkernel_tpu/solvers/api.py``: dispatch the ``-s`` name, place the
-matrix on the device, run the pipeline, slice the requested eigenpairs.
-There is no padding and no mesh: every op here takes any n, and one
-device runs the solve.  Generalized problems, ``dtype='mixed'`` and the
-SEP cores other than the one- and two-stage ones raise
+Counterpart of ``eigenkernel_tpu/solvers/api.py``: dispatch the ``-s``
+name, place the matrices on the device, run the standard or generalized
+pipeline, slice the requested eigenpairs.  There is no padding and no
+mesh: every op here takes any n, and one device runs the solve.
+``dtype='mixed'`` and the ``jacobi`` and ``qdwh`` cores raise
 ``NotImplementedError`` with their ROADMAP item.
 """
 
@@ -48,28 +47,29 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
           n_vec: Optional[int] = None, block_size: int = 0,
           log: Optional[EventLog] = None, dtype: Any = None,
           device: Any = None) -> EigenPairs:
-    """Solve the standard problem ``A x = lambda x``.
+    """Solve ``A x = lambda x``, or ``A x = lambda B x`` with B SPD.
 
-    ``a`` is a dense symmetric matrix (numpy array or torch tensor); it is
-    copied to ``device`` (default: ``a``'s own device for a tensor, else
-    ``cuda``) in ``dtype`` (default: ``a``'s float type, else float64).
-    Returns the ``n_vec`` lowest eigenvalues ascending and their
-    eigenvectors in columns.
+    ``a`` and ``b`` are dense symmetric matrices (numpy arrays or torch
+    tensors); they are copied to ``device`` (default: ``a``'s own device
+    for a tensor, else ``cuda``) in ``dtype`` (default: ``a``'s float type,
+    else float64).  Returns the ``n_vec`` lowest eigenvalues ascending and
+    their eigenvectors in columns, B-orthonormal for a generalized problem
+    (the dsygv convention).
     """
-    if b is not None:
-        raise NotImplementedError("generalized problems: ROADMAP slice 2")
     n = int(a.shape[0])
     if solver in AUTO_NAMES:
-        solver = resolve_auto(solver, n, generalized=False,
+        solver = resolve_auto(solver, n, generalized=b is not None,
                               selecting=n_vec is not None and n_vec != n,
                               on_mesh=False, backend="cuda")
     spec = get_spec(solver)
-    if spec.generalized:
-        raise ValueError(f"solver '{solver}' is not for standard problems")
+    if spec.generalized != (b is not None):
+        kind = "generalized" if b is not None else "standard"
+        raise ValueError(f"solver '{solver}' is not for {kind} problems")
     if not spec.selecting and n_vec is not None and n_vec != n:
         raise ValueError(
             f"solver '{solver}' does not support partial computation")
-    if a.shape[0] != a.shape[1]:
+    if a.shape[0] != a.shape[1] or (b is not None
+                                    and tuple(b.shape) != tuple(a.shape)):
         raise ValueError("matrix dimension mismatch")
     n_vec = n if n_vec is None else int(n_vec)
     if not 0 < n_vec <= n:
@@ -92,7 +92,12 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
         sel = os.environ.get("EK_SELECT_CORE", "auto")
         if sel in ("one_stage", "two_stage"):
             core = sel
-    w, z = pl.standard_pipeline(ctx, a_dev, n_vec, core)
+    if b is None:
+        w, z = pl.standard_pipeline(ctx, a_dev, n_vec, core)
+    else:
+        b_dev = torch.as_tensor(b).to(device=device, dtype=torch_dtype)
+        w, z = pl.generalized_pipeline(ctx, a_dev, b_dev, n_vec, core,
+                                       spec.reduction)
     return EigenPairs(values=w[:n_vec], vectors=z[:, :n_vec],
                       meta={"solver": solver, "core": core, "panel": panel,
                             "device": str(device)})

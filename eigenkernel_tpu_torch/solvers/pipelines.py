@@ -1,20 +1,28 @@
-"""Solver pipelines: the SEP cores on a standard problem.
+"""Solver pipelines: reduction strategy x SEP core x recovery.
 
-Counterpart of ``eigenkernel_tpu/solvers/pipelines.py``, for the cores this
-package runs so far:
+Counterpart of ``eigenkernel_tpu/solvers/pipelines.py``:
 
-  'one_stage' = blocked Householder tridiagonalization (pdsytrd analog)
-              + bisection / inverse-iteration tridiagonal solve (pdsyevx)
+  reduction:  'scalapack' / 'scalapack_new' = Cholesky + triangular solves
+              (pdpotrf + pdsygst / pdsyngst), 'elpa' = Cholesky + explicit
+              inverse + products (:mod:`..ops.reduction`)
+  SEP core:   'one_stage' = blocked Householder tridiagonalization
+              (pdsytrd) + tridiagonal solve (divide and conquer for half
+              the spectrum or more, else bisection / inverse iteration)
               + compact-WY back-transform (pdormtr)
-  'two_stage' = full -> band -> tridiagonal (eigen_sx / ELPA2 analog,
-                :mod:`.twostage`) + the same tridiagonal solve
-                + chase and band back-transforms
+              'two_stage' = full -> band -> tridiagonal (eigen_sx / ELPA2
+              analog, :mod:`.twostage`) + the same tridiagonal solve
+              + chase and band back-transforms
+              'eigh' = ``torch.linalg.eigh`` (cuSOLVER on the card)
+  recovery:   triangular solve or product with the stored inverse,
+              matching the reduction
 
 Each stage is timed into the context's :class:`EventLog` under the
-reference's hierarchical names (``sep:tridiagonalize``,
+reference's hierarchical names (``solve:reduce_elpa``,
+``reduce_generalized[_new]``, ``sep:tridiagonalize``,
 ``sep:full_to_band``, ``sep:band_to_tridiag``, ``sep:tridiag_eigh``,
-``sep:back_transform``), with a ``torch.cuda.synchronize()`` before each
-clock stops, and its model GFLOP/s as ``!<stage>_Gflops``.
+``sep:back_transform``, ``sep:eigh``, ``recovery_generalized``), with a
+``torch.cuda.synchronize()`` before each clock stops, and its model
+GFLOP/s as ``!<stage>_Gflops``.
 """
 
 from __future__ import annotations
@@ -29,12 +37,12 @@ from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
 from eigenkernel_tpu_torch.obs import flops as fl
 from eigenkernel_tpu_torch.obs.events import EventLog, barrier
 from eigenkernel_tpu_torch.ops import householder
+from eigenkernel_tpu_torch.ops import reduction as red
 from eigenkernel_tpu_torch.ops import tridiag as td
 
 # SEP cores of the registry that are still to be ported, with their
 # ROADMAP items
 _NOT_PORTED = {
-    "eigh": "eigh core: ROADMAP slice 1b",
     "jacobi": "block-Jacobi core: ROADMAP slice 6",
     "qdwh": "QDWH spectral divide-and-conquer core: ROADMAP slice 6",
 }
@@ -71,19 +79,69 @@ def sep_one_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):
     tri = _run(ctx, "sep:tridiagonalize", householder.tridiagonalize,
                a, ctx.block_size, flops=fl.tridiagonalize(n))
     w, z = _run(ctx, "sep:tridiag_eigh", td.tridiag_eigh, tri.d, tri.e,
-                n_vec, flops=fl.bisect_invit(n, n_vec))
+                n_vec, flops=fl.tridiag_eigh(n, n_vec))
     z = _run(ctx, "sep:back_transform", householder.apply_q, tri, z,
              ctx.block_size, flops=fl.back_transform_one_stage(n, n_vec))
     return w, z
 
 
+def sep_two_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+    """eigen_sx / ELPA2 analog: full -> band -> tridiagonal, then solve."""
+    from eigenkernel_tpu_torch.solvers.twostage import sep_two_stage as impl
+
+    return impl(ctx, a, n_vec)
+
+
+def sep_eigh(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+    """The library core: one ``torch.linalg.eigh`` (cuSOLVER's syevd on
+    the card)."""
+    w, z = _run(ctx, "sep:eigh", torch.linalg.eigh, a,
+                flops=fl.eigh(a.shape[0]))
+    return w[:n_vec], z[:, :n_vec]
+
+
+SEP_CORES = {
+    "one_stage": sep_one_stage,
+    "two_stage": sep_two_stage,
+    "eigh": sep_eigh,
+}
+
+
+def _core(core: str) -> Callable:
+    if core not in SEP_CORES:
+        raise NotImplementedError(_NOT_PORTED.get(core, f"SEP core '{core}'"))
+    return SEP_CORES[core]
+
+
 def standard_pipeline(ctx: SolverContext, a: torch.Tensor, n_vec: int,
                       core: str):
     """Standard EVP: run the SEP core (no padding in this package)."""
-    if core == "one_stage":
-        return sep_one_stage(ctx, a, n_vec)
-    if core == "two_stage":
-        from eigenkernel_tpu_torch.solvers.twostage import sep_two_stage
+    return _core(core)(ctx, a, n_vec)
 
-        return sep_two_stage(ctx, a, n_vec)
-    raise NotImplementedError(_NOT_PORTED.get(core, f"SEP core '{core}'"))
+
+_REDUCTIONS = {
+    # style: (event, function, flop model), the JAX package's names
+    "elpa": ("solve:reduce_elpa", red.reduce_elpa, fl.reduce_elpa),
+    "scalapack_new": ("reduce_generalized_new", red.reduce_scalapack_new,
+                      fl.reduce_scalapack),
+    "scalapack": ("reduce_generalized", red.reduce_scalapack,
+                  fl.reduce_scalapack),
+}
+
+
+def generalized_pipeline(ctx: SolverContext, a: torch.Tensor,
+                         b: torch.Tensor, n_vec: int, core: str,
+                         reduction_style: str):
+    """Generalized EVP: reduce, SEP core, recover.  The vectors
+    ``x = L^{-T} z`` are B-orthonormal as they come (the dsygv
+    convention): no renormalizing."""
+    sep = _core(core)
+    n = a.shape[0]
+    event, reduce, model = _REDUCTIONS[reduction_style]
+    r = _run(ctx, event, reduce, a, b, flops=model(n))
+    a_std, r = r.a_std, r._replace(a_std=None)
+    w, z = sep(ctx, a_std, n_vec)
+    del a_std
+    x = _run(ctx, "recovery_generalized", red.recover, r, z,
+             flops=fl.recover(n, n_vec))
+    return w, x

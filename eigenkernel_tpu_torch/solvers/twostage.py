@@ -70,7 +70,7 @@ def sep_two_stage(ctx, a: torch.Tensor, n_vec: int):
     # before the eigenvector stages
     band_res = band_res._replace(band=None)
     w, z = _run(ctx, "sep:tridiag_eigh", td.tridiag_eigh, chase_res.d,
-                chase_res.e, n_vec, flops=fl.bisect_invit(n, n_vec))
+                chase_res.e, n_vec, flops=fl.tridiag_eigh(n, n_vec))
     z = _run(ctx, "sep:back_transform", back_transform, band_res, chase_res,
              z, bw, flops=fl.back_transform_two_stage(n, n_vec))
     return w, z

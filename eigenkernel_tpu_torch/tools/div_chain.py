@@ -16,6 +16,9 @@ at).  The recurrences, in the arithmetic of their kernels:
 * ``solve_fwd``: B2's forward row (``csrc/tridiag_solve.cu``),
   ``l = e / u``, ``u = (d - lam) - e l`` floored, ``y = b - l y``;
 * ``solve_bwd``: B2's backward row, ``x = (y - e x) / u``;
+* ``deflate``: D1's step (``csrc/dc_deflate.cu``), ``r = sqrt(up^2 +
+  u^2)``, ``c = u / r``, ``s = up / r``, the coupling test and the rotated
+  carry;
 
 in float64 and float32.  A kernel's chain floor is its serial steps per
 thread times this latency: what a serial recurrence allows however wide
@@ -23,7 +26,9 @@ the card.  The tool ends by printing the floors of B1 and B2 at the
 selecting path's shapes (k = 500 targets at n = 4096 and 16384): B1 runs
 ceil(iters / depth) passes of n steps (the depth its ``warps_per_target``
 gives on this card; one-step bisection, iters passes, beside it), B2 one
-forward and one backward row a row, at the clock the chain ran at.
+forward and one backward row a row, at the clock the chain ran at; and
+D1's at n = 4096 and 16384 for the full spectrum: the top merge of every
+level of the divide-and-conquer tree, K = 2 base 2^(l-1) steps.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import subprocess
 import sys
 import tempfile
 
-from eigenkernel_tpu_torch.ops import build, sturm
+from eigenkernel_tpu_torch.ops import build, dc, sturm
 
 SOURCE = r"""
 #include <cstdio>
@@ -47,6 +52,20 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
 }
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 
 // 8 operand sets cycled in registers: d in v[0..8), e2 / e in v[8..16),
 // b / y / u in v[16..24), x / lam in v[24..28)
@@ -87,8 +106,19 @@ __global__ void chain(const T* __restrict__ v, T* out, long long* cyc,
         if (fabs(ui) < pivmin) ui = (ui < T(0)) ? -pivmin : pivmin;
         y = bv[u] - mul_rn(l, y);
         q[0] = ui;
-      } else {
+      } else if (kind == 2) {
         q[0] = (dv[u] - mul_rn(ev[u], q[0])) / bv[u];
+      } else {
+        // D1: the carry (dp, up) in (x[0], q[0]), pivmin as the tolerance
+        const T di = dv[u], ui = ev[u];
+        const T r = sqrt_rn(add_rn(mul_rn(q[0], q[0]), mul_rn(ui, ui)));
+        const T rs = r == T(0) ? T(1) : r;
+        const T cc = div_rn(ui, rs), sn = div_rn(q[0], rs);
+        const bool close = fabs(mul_rn(mul_rn(di - x[0], cc), sn)) <= pivmin;
+        x[0] = close ? add_rn(mul_rn(mul_rn(sn, sn), x[0]),
+                              mul_rn(mul_rn(cc, cc), di))
+                     : di;
+        q[0] = close ? r : ui;
       }
     }
   }
@@ -147,7 +177,8 @@ int all(const char* type, int sms) {
             run<T, 0, 2>("sturm", type, vals, 1, 1) |
             run<T, 0, 4>("sturm", type, vals, 1, 1) |
             run<T, 1, 1>("solve_fwd", type, vals, 1, 1) |
-            run<T, 2, 1>("solve_bwd", type, vals, 1, 1);
+            run<T, 2, 1>("solve_bwd", type, vals, 1, 1) |
+            run<T, 3, 1>("deflate", type, vals, 1, 1);
   for (int warps = 1; warps <= 32; warps *= 2)
     bad |= run<T, 0, 1>("sturm", type, vals, sms, warps);
   return bad;
@@ -161,37 +192,49 @@ int main() {
 """
 
 
+def parse(out: str) -> dict:
+    """{(recurrence, "f64" | "f32"): (cycles a step, MHz)} of the
+    one-warp, one-chain runs in the tool's output."""
+    return {(m[1], m[2]): (float(m[3]), float(m[4])) for m in re.finditer(
+        r"^(\w+) (f64|f32) chains=1 blocks=1 warps=1: ([0-9.]+) "
+        r"cycles/step .*?, ([0-9.]+) MHz", out, re.M)}
+
+
+def dc_top_steps(n: int) -> int:
+    """D1's chain at n: the steps of the top merge of every level of the
+    divide-and-conquer tree (``ops/dc.py::_tree_shape``), one launch a
+    level."""
+    base, levels = dc._tree_shape(n)
+    return sum(2 * base << (lvl - 1) for lvl in range(1, levels + 1))
+
+
+def step_ns(chains: dict, name: str, tag: str) -> float:
+    cyc, mhz = chains[name, tag]
+    return 1e3 * cyc / mhz
+
+
 def floors(out: str, sms: int) -> None:
-    """Print the chain floors of B1 and B2 from the tool's output."""
-    cyc, mhz = {}, {}
-    for m in re.finditer(r"^(\w+) (f64|f32) chains=1 blocks=1 warps=1: "
-                         r"([0-9.]+) cycles/step .*?, ([0-9.]+) MHz", out,
-                         re.M):
-        cyc[m[1], m[2]] = float(m[3])
-        mhz[m[1], m[2]] = float(m[4])
+    """Print the chain floors of B1, B2 and D1 from the tool's output."""
+    chains = parse(out)
     k = 500
     warps = sturm.warps_per_target(k, sms)
     for n in (4096, 16384):
         for tag, iters in (("f64", 62), ("f32", 30)):
             passes = len(sturm.round_depths(iters, sturm.depth_of(warps)))
-            b1 = passes * n * cyc["sturm", tag] / mhz["sturm", tag] / 1e3
-            seq = iters * n * cyc["sturm", tag] / mhz["sturm", tag] / 1e3
-            b2 = n * (cyc["solve_fwd", tag] / mhz["solve_fwd", tag]
-                      + cyc["solve_bwd", tag] / mhz["solve_bwd", tag]) / 1e3
+            b1 = passes * n * step_ns(chains, "sturm", tag) / 1e6
+            seq = iters * n * step_ns(chains, "sturm", tag) / 1e6
+            b2 = n * (step_ns(chains, "solve_fwd", tag)
+                      + step_ns(chains, "solve_bwd", tag)) / 1e6
+            d1 = dc_top_steps(n) * step_ns(chains, "deflate", tag) / 1e6
             print(f"chain floor {tag} n={n} k={k}: B1 {b1:.3f} ms ({passes} "
                   f"passes of {n} steps at {warps} warps a target; one-step "
                   f"bisection {seq:.3f} ms), B2 {b2:.3f} ms ({n} forward + "
-                  f"{n} backward rows)")
+                  f"{n} backward rows); D1 {d1:.3f} ms over the levels of "
+                  f"the full spectrum ({dc_top_steps(n)} top-merge steps)")
 
 
-def main() -> int:
-    import torch
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+def run_chains() -> str:
+    """Build the chain program with nvcc, run it, return its output."""
     with tempfile.TemporaryDirectory() as tmp:
         src, exe = os.path.join(tmp, "chain.cu"), os.path.join(tmp, "chain")
         with open(src, "w") as f:
@@ -202,11 +245,23 @@ def main() -> int:
         subprocess.run([build._nvcc(), *flags, "-o", exe, src], check=True,
                        capture_output=True)
         run = subprocess.run([exe], capture_output=True, text=True)
-    print(run.stdout, end="")
     if run.returncode != 0:
-        print(run.stderr, file=sys.stderr)
-        return run.returncode
-    floors(run.stdout, sms)
+        raise RuntimeError(f"chain program failed ({run.returncode}): "
+                           f"{run.stdout}{run.stderr}")
+    return run.stdout
+
+
+def main() -> int:
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = run_chains()
+    print(out, end="")
+    floors(out, sms)
     return 0
 
 

@@ -9,10 +9,11 @@ it also runs where only PyTorch is installed:
 
 import numpy as np
 import pytest
+import scipy.linalg as sla
 import torch
 
 from eigenkernel_tpu_torch.ops import (backtransform, band, bulge, chase,
-                                       sturm, tridiag_solve, wf_bt)
+                                       dc, sturm, tridiag_solve, wf_bt)
 from eigenkernel_tpu_torch.ops.tridiag import gershgorin_bounds, pivot_floor
 
 
@@ -368,3 +369,93 @@ def test_two_stage_solve_on_card_launches_its_kernels(cuda_device,
     v = pairs.vectors.cpu().numpy()
     assert np.abs(w - np.linalg.eigvalsh(a)[:12]).max() <= 1e-12 * 30
     assert np.abs(a @ v - v * w[None, :]).max() <= 1e-12 * 30
+
+
+def _deflate_input(kind, nb, K, dtype, device):
+    """One level's scan operands: well separated poles (no deflation),
+    rho = 0 (every entry type-1 deflated) or runs of 8 equal poles (dense
+    type-2 chains); tol as _merge_one forms it."""
+    rng = np.random.default_rng(K + nb)
+    ds = np.sort(rng.standard_normal((nb, K)), axis=1)
+    if kind == "none":
+        ds = np.arange(K) + rng.uniform(-0.25, 0.25, (nb, K))
+    elif kind == "chains":
+        ds = np.repeat(ds[:, ::8], 8, axis=1)[:, :K]
+    us = rng.standard_normal((nb, K)) / np.sqrt(K)
+    rho = 0.0 if kind == "dead" else 1.0
+    tol = 8 * torch.finfo(dtype).eps * np.abs(ds).max(axis=1)
+    t = [torch.tensor(x, dtype=dtype, device=device) for x in (ds, us, tol)]
+    alive = rho * t[1].abs() > t[2][:, None]
+    return t[0], t[1], alive, t[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "dead", "chains"])
+@pytest.mark.parametrize("K", [128, 130, 4096])
+@pytest.mark.parametrize("nb", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_deflate_kernel_matches_plain_on_card(cuda_device, dtype, nb, K,
+                                              kind):
+    ds, us, alive, tol = _deflate_input(kind, nb, K, dtype, cuda_device)
+    before = dc.LAUNCHES
+    got = dc.deflate_scan(ds, us, alive, tol)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES == before + 1
+    want = dc.deflate_scan_plain(ds, us, alive, tol)
+    for field in dc.Deflation._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    rot = int(got.rot_m.sum())
+    if kind == "chains":
+        assert rot > 0 and int(got.depths.max()) >= 6
+    else:
+        assert rot == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_divide_and_conquer_on_card_one_launch_a_level(cuda_device, dtype):
+    n = 300                                  # base 40, 3 levels, padded
+    rng = np.random.default_rng(6)
+    d_np, e_np = rng.standard_normal(n), rng.standard_normal(n - 1)
+    d = torch.tensor(d_np, dtype=dtype, device=cuda_device)
+    e = torch.tensor(e_np, dtype=dtype, device=cuda_device)
+    before = dc.LAUNCHES
+    w, q = dc.tridiag_dc(d, e)
+    torch.cuda.synchronize()
+    assert dc.LAUNCHES == before + dc._tree_shape(n)[1]
+    t = np.diag(d_np) + np.diag(e_np, 1) + np.diag(e_np, -1)
+    w, q = w.double().cpu().numpy(), q.double().cpu().numpy()
+    scale = np.abs(w).max()
+    bar = 5e-13 if dtype == torch.float64 else 5e-5
+    assert np.abs(w - np.linalg.eigvalsh(t)).max() <= bar * scale
+    assert np.abs(t @ q - q * w[None, :]).max() <= bar * scale
+    assert np.abs(q.T @ q - np.eye(n)).max() <= (
+        1e-13 if dtype == torch.float64 else 5e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["scalapack", "eigensx", "general_elpa2"])
+def test_full_spectrum_solve_on_card_launches_d1(cuda_device, monkeypatch,
+                                                 solver):
+    from eigenkernel_tpu_torch.solvers import solve
+
+    monkeypatch.delenv("EK_TRIDIAG", raising=False)
+    rng = np.random.default_rng(4)
+    n = 260
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    m = rng.standard_normal((n, n))
+    b = m @ m.T / n + np.eye(n) if solver.startswith("general") else None
+    dc.LAUNCHES = 0
+    pairs = solve(torch.tensor(a, device=cuda_device),
+                  None if b is None else torch.tensor(b, device=cuda_device),
+                  solver=solver)
+    assert dc.LAUNCHES == dc._tree_shape(n)[1]
+    w = pairs.values.cpu().numpy()
+    v = pairs.vectors.cpu().numpy()
+    bb = np.eye(n) if b is None else b
+    w_ref = sla.eigh(a, bb, eigvals_only=True)
+    assert np.abs(w - w_ref).max() <= 1e-12 * np.abs(w_ref).max()
+    r = np.linalg.norm(a @ v - (bb @ v) * w[None, :], axis=0).max()
+    assert r <= 1e-12 * np.linalg.norm(a)
+    assert np.abs(v.T @ bb @ v - np.eye(n)).max() <= 1e-12

@@ -154,8 +154,8 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
     monkeypatch.delenv("EK_TRIDIAG", raising=False)
     argv = ["--platform", "cpu", "-s", "scalapack_select", "-n", "3",
             str(mtx)]
-    if case == "matrix_b":
-        argv = ["--platform", "cpu", "-s", "general_scalapack", str(mtx),
+    if case == "matrix_b":            # a generalized core not ported yet
+        argv = ["--platform", "cpu", "-s", "general_jacobi", str(mtx),
                 str(mtx)]
     elif case == "num_processes":
         monkeypatch.setenv("EK_NUM_PROCESSES", "2")
@@ -170,8 +170,8 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
         argv = ["--dtype", "mixed"] + argv
     elif case == "missing_file":
         argv[-1] = str(tmp_path / "absent.mtx")
-    elif case == "dc_core":
-        argv = ["--platform", "cpu", "-s", "scalapack", str(mtx)]
+    elif case == "dc_core":           # the spectral divide and conquer
+        argv = ["--platform", "cpu", "-s", "qdwh_dc", str(mtx)]
     assert _run(port_main, tmp_path, argv) == 1
     assert "[Error]" in capsys.readouterr().err
     assert not (tmp_path / "eigenvalues.dat").exists()

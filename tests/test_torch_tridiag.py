@@ -132,14 +132,23 @@ def test_tridiag_eigh_small_n_uses_eigh():
 
 @pytest.mark.parametrize("env,k", [(None, None), ("dc", 5)])
 def test_divide_and_conquer_branch_raises(monkeypatch, env, k):
+    # the dc branch (auto at the full spectrum, or EK_TRIDIAG=dc for any
+    # part of it) runs divide and conquer, as the JAX function does
     if env is None:
         monkeypatch.delenv("EK_TRIDIAG", raising=False)
     else:
         monkeypatch.setenv("EK_TRIDIAG", env)
     rng = np.random.default_rng(3)
     d, e = rng.standard_normal(20), rng.standard_normal(19)
-    with pytest.raises(NotImplementedError, match="slice 1b"):
-        td.tridiag_eigh(torch.tensor(d), torch.tensor(e), n_vec=k)
+    w, v = _port(d, e, k)
+    kk = 20 if k is None else k
+    w_ref, _ = jax_tridiag_eigh(jnp.asarray(d), jnp.asarray(e), n_vec=k)
+    assert w.shape == (kk,) and v.shape == (20, kk)
+    scale = np.abs(np.asarray(w_ref)).max()
+    assert np.abs(w - np.asarray(w_ref)).max() <= 5e-13 * scale
+    t = _tmat(d, e)
+    assert np.abs(t @ v - v * w[None, :]).max() <= 5e-13 * scale
+    assert np.abs(v.T @ v - np.eye(kk)).max() <= 1e-13
 
 
 def test_zero_matrix_gets_a_positive_pivot_floor():
