@@ -67,6 +67,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     (float64), by the B-metric residual and orthogonality of the port's
     verifier and against eigenvalues the smoke forms from its own float64
     Cholesky of B; each path's kernels must have been launched.
+12. The extra cores and ``--dtype mixed`` at n = 4096, on a new ELSES-style
+    matrix (seed 10) against the bars of phase 4: ``-s jacobi`` float64
+    and float32 (D2, the batched pair eigh ``csrc/pair_jacobi.cu``, must
+    have been launched once a round: 63 rounds x 12 / 8 sweeps), ``-s
+    qdwh_dc`` float64, and ``--dtype mixed`` with ``-s scalapack`` (then a
+    float64 ``scalapack`` solve of the same matrix, for the time),
+    ``-s scalapack_select -n 500`` and, on phase 11's A and B,
+    ``general_elpa2``, held to the float64 bars (a part of the spectrum is
+    refined only inside the span of its float32 vectors, so the selecting
+    run's residual is held to the float32 bar, its eigenvalues and
+    orthogonality to the float64 ones); ``general_jacobi`` and
+    ``general_qdwh_dc`` (float64) on phase 11's A and B.  Each run prints
+    its stage table and peak memory; the mixed ``scalapack`` run's float32
+    vectors are refined again at 4 to 12 Newton steps, each one's residual
+    printed, and one float64 ``block_jacobi_eigh`` of that run is traced
+    with torch.profiler (D2's, the products' and the gathers' device
+    time).  D2 is then held against its plain
+    version (``torch.equal`` on values, vectors, sweeps and rotations) on
+    the pair blocks the float64 ``jacobi`` run gave it in its first and
+    last round and on a random (32, 128, 128) batch, each timed with CUDA
+    events beside its bound (``obs/flops.py::bound_pair_eigh``, the set
+    latency from ``tools/div_chain.py``) and one ``torch.linalg.eigh`` of
+    the same batch (its library call); also D2 and that call on the
+    (64, 64, 64) batch of tridiagonal blocks of divide and conquer's
+    leaves at n = 4096.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -76,9 +101,10 @@ entry per kernel: its time, its plain version's, its bound
 over the card's peak and its bytes over the memory rate, with what bounds
 it) and the time of one PyTorch call of the same function where there is
 one (``library_ms``: ``eigvalsh`` for B1, the per-step ``torch.bmm`` for
-B4, B4's whole plain version (P stream and ``torch.bmm``) for B5; null
-for B2, B3 and D1), in float64 at the shape named in the entry; the last
-line is ``{"ok": true, "device": {...}}``.
+B4, B4's whole plain version (P stream and ``torch.bmm``) for B5,
+``torch.linalg.eigh`` of the batch for D2; null for B2, B3 and D1), in
+float64 at the shape named in the entry; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,6 +128,7 @@ N_SX = 4096                    # eigensx, full spectrum
 N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
 N_DC = 4096                    # full spectrum through divide and conquer
 N_GEN, K_GEN = 4096, 500       # generalized problems
+N_X, K_X = 4096, 500           # the extra cores and --dtype mixed
 
 
 class SmokeFailure(RuntimeError):
@@ -156,6 +183,26 @@ def env(**values):
 
 
 @contextlib.contextmanager
+def capture_ends(module, name):
+    """Record the positional arguments of the first and the last call of
+    ``module.name`` made inside the block, and the number of calls; the
+    calls themselves run unchanged."""
+    seen = {"calls": 0}
+    fn = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        seen["first" if seen["calls"] == 0 else "last"] = args
+        seen["calls"] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
 def capture(module, name, limit=None):
     """Record the positional arguments of every call of ``module.name``
     made inside the block (of the first ``limit`` calls, if given); the
@@ -176,20 +223,22 @@ def capture(module, name, limit=None):
 
 
 def reset_launches():
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, sturm,
-                                           tridiag_solve, wf_bt)
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, jacobi,
+                                           sturm, tridiag_solve, wf_bt)
 
-    for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform, dc):
+    for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform, dc,
+                jacobi):
         mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, sturm,
-                                           tridiag_solve, wf_bt)
+    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, jacobi,
+                                           sturm, tridiag_solve, wf_bt)
 
     return {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES,
             "chase": chase.LAUNCHES, "wf_bt": wf_bt.LAUNCHES,
-            "chase_bt": backtransform.LAUNCHES, "deflate": dc.LAUNCHES}
+            "chase_bt": backtransform.LAUNCHES, "deflate": dc.LAUNCHES,
+            "pair_eigh": jacobi.LAUNCHES}
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -992,20 +1041,21 @@ def compare_deflate(levels, tag, step_ns):
     return dict(total, dtype=tag, levels=rows)
 
 
-def profile_dc(d, e):
-    """One ``tridiag_dc`` under torch.profiler: the kernels it launched on
-    the card, D1's device time and the device time of all of them."""
+def profile_call(label, fn, *args, parts=None, warm=True):
+    """One call of ``fn(*args)`` (after a warm-up call, with ``warm``)
+    under torch.profiler: its wall time, the kernels it launched on the
+    card, the device time of all of them and, for each entry of
+    ``parts``, of those whose name holds that text (case ignored)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from eigenkernel_tpu_torch.ops import dc
-
-    dc.tridiag_dc(d, e)
-    torch.cuda.synchronize()
+    if warm:
+        fn(*args)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        dc.tridiag_dc(d, e)
+        fn(*args)
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = [ev for ev in prof.events()
@@ -1014,15 +1064,25 @@ def profile_dc(d, e):
                    if ev.name in ("cudaLaunchKernel", "cuLaunchKernel",
                                   "cudaLaunchKernelExC"))
     busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
-    d1_us = sum(ev.time_range.elapsed_us() for ev in kernels
-                if "dc_deflate" in ev.name)
     out = {"wall_s": wall, "device_kernels": len(kernels),
-           "launch_calls": launches, "device_busy_ms": busy_us / 1e3,
-           "d1_ms": d1_us / 1e3}
-    print(f"profile of one tridiag_dc n={d.shape[0]} {d.dtype}: {wall:.4f} s"
-          f", {len(kernels)} kernels on the card ({launches} launch calls), "
-          f"device busy {busy_us / 1e3:.3f} ms, D1 {d1_us / 1e3:.3f} ms")
+           "launch_calls": launches, "device_busy_ms": busy_us / 1e3}
+    for key, text in (parts or {}).items():
+        out[key] = sum(ev.time_range.elapsed_us() for ev in kernels
+                       if text in ev.name.lower()) / 1e3
+    shares = ", ".join(f"{key} {out[key]:.3f} ms" for key in parts or {})
+    print(f"profile of one {label}: {wall:.4f} s, {len(kernels)} kernels on "
+          f"the card ({launches} launch calls), device busy "
+          f"{busy_us / 1e3:.3f} ms; {shares}")
     return out
+
+
+def profile_dc(d, e):
+    """One ``tridiag_dc`` under torch.profiler: the kernels it launched on
+    the card, D1's device time and the device time of all of them."""
+    from eigenkernel_tpu_torch.ops import dc
+
+    return profile_call(f"tridiag_dc n={d.shape[0]} {d.dtype}", dc.tridiag_dc,
+                        d, e, parts={"d1_ms": "dc_deflate"})
 
 
 def phase_dc(dev, tmp, chains):
@@ -1170,6 +1230,214 @@ def phase_generalized(dev, tmp):
             work, cli_out, ref, kk, f"{dtype_name} {solver}",
             *((1e-12, 1e-10, 1e-10) if f64 else (1e-5, 1e-3, 1e-4)))
     print(f"launches on the generalized paths: {launches}")
+    return launches, out, (path_a, path_b, ref)
+
+
+def compare_pair_eigh(a, label, set_ns):
+    """D2 against its plain version on the batch ``a``, ``torch.equal`` on
+    values, vectors, sweeps and rotations; timed with CUDA events beside
+    its bound and one ``torch.linalg.eigh`` of the same batch (its library
+    call, which the port does not make on this path)."""
+    import torch
+
+    from eigenkernel_tpu_torch.obs import flops
+    from eigenkernel_tpu_torch.ops import jacobi
+
+    tag = "f64" if a.dtype == torch.float64 else "f32"
+    m, w = a.shape[0], a.shape[1]
+    got = jacobi.pair_eigh(a)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: jacobi.pair_eigh(a), 3)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    plain = jacobi.pair_eigh_plain(a)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    torch.linalg.eigh(a)
+    torch.cuda.synchronize()
+    lib_ms = time_ms(lambda: torch.linalg.eigh(a), 1, batches=3)
+    err = max(float((getattr(got, f).double()
+                     - getattr(plain, f).double()).abs().max())
+              for f in jacobi.PairEigh._fields)
+    sweeps, rot = int(got.sweeps.max()), int(got.rotations.sum())
+    bound_ms, bound_by = flops.bound_pair_eigh(m, w, sweeps, rot, a.dtype,
+                                               set_ns)
+    sets = sweeps * (w - 1 + (w & 1))
+    print(f"pair_jacobi {tag} {label}: m={m} w={w}, sweeps "
+          f"{int(got.sweeps.min())}-{sweeps}, {rot} rotations: kernel "
+          f"{ms:.3f} ms ({1e3 * ms / sets:.2f} us a set of the longest "
+          f"block), plain {plain_ms:.1f} ms, torch.linalg.eigh {lib_ms:.3f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}), max diff {err:.3e} "
+          f"(bar: equal)")
+    check(all(torch.equal(getattr(got, f), getattr(plain, f))
+              for f in jacobi.PairEigh._fields),
+          f"pair_jacobi {tag} {label} kernel == plain bit for bit")
+    ref = torch.linalg.eigvalsh(a.double())
+    ev_err = float((got.values.double().sort(dim=1).values - ref)
+                   .abs().max() / ref.abs().max())
+    bar = 1e-13 if tag == "f64" else 1e-4
+    check(ev_err <= bar, f"pair_jacobi {tag} {label} values == eigvalsh "
+                         f"({ev_err:.3e} <= {bar:g} of the largest)")
+    return {"m": m, "w": w, "dtype": tag, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "sweeps": sweeps,
+            "rotations": rot, "us_per_set": 1e3 * ms / sets,
+            "set_ns": set_ns}
+
+
+def refine_by_steps(a64, v32, ref, steps=(4, 6, 8, 10, 12)):
+    """The residual, orthogonality and eigenvalue error of the mixed
+    refinement of ``v32`` against ``a64`` after each number of Newton
+    steps (``EK_REFINE_STEPS``), and each one's time."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import refine
+
+    n = a64.shape[0]
+    anorm = float(a64.norm())
+    rows = {}
+    for k in steps:
+        t0 = time.time()
+        w, v = refine.refine_eigenpairs(a64, v32, steps=k)
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        resid = float(((a64 @ v - v * w).norm(dim=0) / anorm).max())
+        orth = float((v.T @ v - torch.eye(n, dtype=v.dtype,
+                                          device=v.device)).abs().max())
+        ev = float(abs(w.cpu().numpy() - ref[:n]).max())
+        rows[k] = {"resid": resid, "orth": orth, "ev": ev, "s": sec}
+        print(f"  refine {k:2d} steps: resid max {resid:.3e}, |V^T V - I| "
+              f"{orth:.3e}, |eig - eigvalsh| {ev:.3e}, {sec:.3f} s")
+    return rows
+
+
+def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
+    """Phase 12: the jacobi and qdwh_dc cores and --dtype mixed at
+    n = 4096; then D2 against its plain version on the path's pair
+    blocks, a random batch and the dc leaves' batch."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.ops import dc, jacobi
+    from eigenkernel_tpu_torch.solvers import api
+    from eigenkernel_tpu_torch.tools import div_chain
+
+    os.environ.pop("EK_TRIDIAG", None)
+    mat, path = write_elses(tmp, N_X, seed=10)
+    ref = reference_eigvalsh(mat, dev)
+    path_a, path_b, ref_gen = gen_pair
+    f64_bars, f32_bars = (1e-12, 1e-10, 1e-10), (1e-5, 1e-3, 1e-4)
+    levels = dc._tree_shape(N_X)[1]
+    rounds = N_X // 64 - 1
+    runs = (
+        # (label, argv, k, reference, bars, launches wanted)
+        ("jacobi float64", ["-s", "jacobi"], N_X, ref, f64_bars,
+         {"pair_eigh": rounds * 12}),
+        ("jacobi float32", ["-s", "jacobi", "--dtype", "float32"], N_X, ref,
+         f32_bars, {"pair_eigh": rounds * 8}),
+        ("qdwh_dc float64", ["-s", "qdwh_dc"], N_X, ref, f64_bars, {}),
+        ("scalapack mixed", ["-s", "scalapack", "--dtype", "mixed"], N_X,
+         ref, f64_bars, {"deflate": levels}),
+        ("scalapack float64 (same matrix)", ["-s", "scalapack"], N_X, ref,
+         f64_bars, {"deflate": levels}),
+        ("scalapack_select mixed", ["-s", "scalapack_select", "-n",
+                                    str(K_X), "--dtype", "mixed"], K_X, ref,
+         (1e-5, 1e-10, 1e-10), {"sturm": 1, "solve": 1}),
+        ("general_elpa2 mixed", ["-s", "general_elpa2", "--dtype", "mixed"],
+         N_GEN, ref_gen, f64_bars, {"chase": 1, "wf_bt": 1,
+                                    "deflate": levels}),
+        ("general_jacobi float64", ["-s", "general_jacobi"], N_GEN, ref_gen,
+         f64_bars, {"pair_eigh": rounds * 12}),
+        ("general_qdwh_dc float64", ["-s", "general_qdwh_dc"], N_GEN,
+         ref_gen, f64_bars, {}),
+    )
+    launches, out = {}, {"stages": {}, "peak_gib": {}, "launches": {}}
+    ends = refined = jac_args = None
+    for label, argv, k, ref_k, bars, want in runs:
+        work = os.path.join(tmp, "x_" + label.split(" (")[0]
+                            .replace(" ", "_"))
+        os.makedirs(work)
+        files = [path_a, path_b] if label.startswith("general") else [path]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with capture_ends(jacobi, "pair_eigh") as seen, \
+                capture(api, "refine_eigenpairs", 1) as refines, \
+                capture(jacobi, "block_jacobi_eigh", 1) as jac:
+            cli_out = run_cli(work, argv + ["-c", str(k), "-t", f"1,{k}"]
+                              + files)
+        got = read_launches()
+        if label != "scalapack float64 (same matrix)":
+            add_launches(launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  launches: {got}; peak device memory {peak:.2f} GiB")
+        for key, n_want in want.items():
+            exact = key == "pair_eigh" or key == "deflate"
+            ok = got[key] == n_want if exact else got[key] >= n_want
+            check(ok, f"{label} launched {key} {got[key]} times "
+                      f"({'==' if exact else '>='} {n_want})")
+        out["stages"][label] = check_run(work, cli_out, ref_k, k, label,
+                                         *bars)
+        out["peak_gib"][label] = peak
+        out["launches"][label] = got
+        if label == "jacobi float64":
+            ends, jac_args = seen, jac[0]
+        if label == "scalapack mixed":
+            refined = refines[0][:2]
+    mixed_s = out["stages"]["scalapack mixed"]["main:eigen_solver"]
+    f64_s = out["stages"]["scalapack float64 (same matrix)"][
+        "main:eigen_solver"]
+    print(f"scalapack n={N_X}: --dtype mixed {mixed_s:.3f} s (refine "
+          f"{out['stages']['scalapack mixed']['solve:refine']:.3f} s) "
+          f"against float64 {f64_s:.3f} s on the same matrix (phase 10's "
+          f"first float64 solve: {dc_f64_s:.3f} s)")
+    out["mixed_vs_f64"] = {"mixed_s": mixed_s, "f64_s": f64_s,
+                           "phase10_f64_s": dc_f64_s}
+    # the refinement of that run's float32 vectors by step count (the
+    # port's default is 8)
+    out["refine_by_steps"] = refine_by_steps(*refined, ref)
+    del refined
+    # where the float64 jacobi core's time goes: D2, the products, the
+    # gathers and scatters of the rounds (the CLI run warmed it up)
+    out["profile_jacobi"] = profile_call(
+        f"block_jacobi_eigh n={N_X} float64", jacobi.block_jacobi_eigh,
+        *jac_args, parts={"d2_ms": "pair_jacobi", "gemm_ms": "gemm",
+                          "index_ms": "index"}, warm=False)
+    del jac_args
+    # D2 on the float64 path's first and last round, a random batch and
+    # the dc leaves' batch; its bound from this card's set latency
+    out["pair_eigh"] = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        set_ns = div_chain.step_ns(chains, "pair_set", tag)
+        rows = []
+        if tag == "f64":
+            check(ends["calls"] == rounds * 12,
+                  f"recorded the {rounds * 12} pair eighs of the path")
+            rows.append(dict(compare_pair_eigh(ends["first"][0],
+                                               "path round 1", set_ns),
+                             label="path round 1"))
+            rows.append(dict(compare_pair_eigh(
+                ends["last"][0], f"path round {rounds * 12}", set_ns),
+                label=f"path round {rounds * 12}"))
+        rng = np.random.default_rng(11)
+        x = rng.standard_normal((32, 128, 128))
+        x = torch.tensor(x + x.transpose(0, 2, 1), dtype=dtype, device=dev)
+        rows.append(dict(compare_pair_eigh(x, "random", set_ns),
+                         label="random (32, 128, 128)"))
+        base = dc._tree_shape(N_X)[0]
+        nb = N_X // base
+        d = rng.standard_normal((nb, base))
+        e = rng.standard_normal((nb, base - 1))
+        t = torch.tensor(np.stack([np.diag(d[i]) + np.diag(e[i], 1)
+                                   + np.diag(e[i], -1) for i in range(nb)]),
+                         dtype=dtype, device=dev)
+        rows.append(dict(compare_pair_eigh(t, "dc leaves", set_ns),
+                         label=f"dc leaves ({nb}, {base}, {base})"))
+        out["pair_eigh"][tag] = rows
+    del ends
+    torch.cuda.empty_cache()
+    print(f"launches on the extra-core and mixed paths: {launches}")
     return launches, out
 
 
@@ -1239,8 +1507,13 @@ def main() -> int:
         print(f"full spectrum through divide and conquer: "
               f"{time.time() - t0:.1f} s")
         t0 = time.time()
-        launches_gen, _ = phase_generalized(dev, tmp)
+        launches_gen, _, gen_pair = phase_generalized(dev, tmp)
         print(f"generalized problems: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches_x, x_out = phase_extra(
+            dev, tmp, chains, gen_pair,
+            dc_out["stages"]["scalapack float64"]["main:eigen_solver"])
+        print(f"extra cores and --dtype mixed: {time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
@@ -1319,6 +1592,27 @@ def main() -> int:
                     "path_checks": [dc_out["profile"],
                                     {"launches_generalized":
                                      launches_gen["deflate"]}]})
+    # D2: the float64 jacobi path's first-round pair blocks (dense, the
+    # most sweeps); not a TPU kernel (it replaces the library eigh of the
+    # pair blocks in the JAX function)
+    d2 = x_out["pair_eigh"]["f64"][0]
+    entries.append({"name": "pair_jacobi_kernel", "route": "cuda",
+                    "source": "eigenkernel_tpu_torch/csrc/pair_jacobi.cu",
+                    "replaces": "eigenkernel_tpu/ops/jacobi.py:94",
+                    "launches": launches_x["pair_eigh"],
+                    "max_abs_err": d2["max_abs_err"], "ms": d2["ms"],
+                    "plain_ms": d2["plain_ms"], "bound_ms": d2["bound_ms"],
+                    "bound_by": d2["bound_by"],
+                    "library_ms": d2["library_ms"],
+                    "shape": f"m={d2['m']} w={d2['w']}, the n={N_X} "
+                             f"jacobi path's round 1 (path operands)",
+                    "dtype": "float64",
+                    "float32": x_out["pair_eigh"]["f32"][0],
+                    "path_checks": x_out["pair_eigh"]["f64"][1:]
+                    + [{"launches_by_run": x_out["launches"],
+                        "mixed_vs_f64": x_out["mixed_vs_f64"],
+                        "refine_by_steps": x_out["refine_by_steps"],
+                        "profile_jacobi": x_out["profile_jacobi"]}]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

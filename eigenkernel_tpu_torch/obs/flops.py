@@ -82,6 +82,19 @@ def recover(n: int, k: int) -> float:
     return trmm(n, k)
 
 
+def jacobi(n: int, sweeps: int = 8) -> float:
+    # 3 batched rotation GEMM passes per tournament round, n/b rounds
+    return 12.0 * sweeps * n ** 3
+
+
+def qdwh_dc(n: int) -> float:
+    # per split node at size m: ~7-iteration sign (QR iters ~5 m^3, chol
+    # iters ~3 m^3 each -> ~22 m^3) + CholQR2 (~5 m^3) + rotation GEMMs
+    # (4 m^3) + vector assembly (2 m^3) ~ 33 m^3; the balanced tree sums
+    # sum_l 2^l (m/2^l)^3 = m^3 / (1 - 1/4) -> ~44 n^3
+    return 44.0 * n ** 3
+
+
 def eigh(n: int) -> float:
     # dense symmetric eigensolver nominal count (the LAPACK-style
     # 4/3 n^3 + 4 n^3)
@@ -100,7 +113,8 @@ def eigh(n: int) -> float:
 # rank-one updates (B3) are held to the CUDA-core rate of their type.  D1,
 # a serial recurrence of K steps a merge, is held to its chain: K steps of
 # one step's measured latency (tools/div_chain.py), its operations taken
-# one after another.
+# one after another; D2 to the larger of its rotations' operations and its
+# chain of dependent sets, each of one set's measured latency.
 
 PEAK_FP64_TENSOR = 67e12
 PEAK_FP64 = 34e12
@@ -208,4 +222,24 @@ def bound_deflate(nb: int, K: int, dtype, step_ns: float):
     t_chain, t_bytes = K * step_ns * 1e-9, nbytes / MEM_RATE
     if t_chain >= t_bytes:
         return 1e3 * t_chain, "operations"
+    return 1e3 * t_bytes, "bytes"
+
+
+def bound_pair_eigh(m: int, w: int, sweeps: int, rotations: int, dtype,
+                    set_ns: float):
+    """D2 on m blocks of w x w: the largest of its operations over the
+    CUDA-core peak of its type (18 w for each of the ``rotations`` the run
+    applied: the rows, the columns and V^T, a product pair and a sum an
+    entry), its bytes (reads the blocks; writes the values, the vectors
+    and two counts a block) over the memory rate, and its chain:
+    ``sweeps`` (the most any block ran) sweeps of w - 1 (w for odd w)
+    dependent sets of ``set_ns`` each, the blocks side by side."""
+    isz = dtype.itemsize
+    sets = w - 1 + (w & 1)
+    ops = 18.0 * w * rotations
+    nbytes = (2 * m * w * w + m * w) * isz + 8 * m
+    t_ops = max(ops / _cuda_core_peak(dtype), sweeps * sets * set_ns * 1e-9)
+    t_bytes = nbytes / MEM_RATE
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations"
     return 1e3 * t_bytes, "bytes"

@@ -69,6 +69,12 @@ _SIGNATURES = {
         "ek_dc_deflate_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                               _P, _P),
     },
+    "pair_jacobi.cu": {
+        "ek_pair_jacobi_f64": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+        "ek_pair_jacobi_f32": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+        "ek_pair_jacobi_smem": (_I, _I),
+        "ek_pair_jacobi_resident": (_I, _I),
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

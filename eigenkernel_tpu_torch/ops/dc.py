@@ -70,7 +70,7 @@ class Deflation(NamedTuple):
     depths: torch.Tensor
 
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root, which CUDA's ``sqrt`` and the
     kernel give: PyTorch's CPU kernel can be one ulp off, numpy's is
     exact."""
@@ -104,7 +104,7 @@ def deflate_scan_plain(ds: torch.Tensor, us: torch.Tensor,
                            "rot_ip", "rot_c", "rot_s", "rot_m", "depths")}
     for i in range(K):
         di, ui, al = ds[:, i], us[:, i], alive[:, i]
-        r = _sqrt_rn(up * up + ui * ui)
+        r = sqrt_rn(up * up + ui * ui)
         r_safe = torch.where(r == 0, 1.0, r)
         c = ui / r_safe
         sn = up / r_safe

@@ -4,13 +4,14 @@ Counterpart of ``eigenkernel_tpu/solvers/api.py``: dispatch the ``-s``
 name, place the matrices on the device, run the standard or generalized
 pipeline, slice the requested eigenpairs.  There is no padding and no
 mesh: every op here takes any n, and one device runs the solve.
-``dtype='mixed'`` and the ``jacobi`` and ``qdwh`` cores raise
-``NotImplementedError`` with their ROADMAP item.
+``dtype='mixed'`` runs the pipeline in float32 and refines its eigenpairs
+against float64 copies of the caller's matrices (``ops/refine.py``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -20,6 +21,8 @@ from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
                                               set_matmul_precision_highest)
 from eigenkernel_tpu_torch.core.types import EigenPairs
 from eigenkernel_tpu_torch.obs.events import EventLog
+from eigenkernel_tpu_torch.obs.mem import memstats
+from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs
 from eigenkernel_tpu_torch.solvers import pipelines as pl
 from eigenkernel_tpu_torch.solvers.registry import (AUTO_NAMES, get_spec,
                                                     resolve_auto)
@@ -34,10 +37,6 @@ def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
         if isinstance(a, np.ndarray) and a.dtype == np.float32:
             return torch.float32
         return torch.float64
-    if dtype == "mixed":
-        raise NotImplementedError(
-            "dtype='mixed' (float32 pipeline + float64 refinement): "
-            "ROADMAP slice 5")
     if isinstance(dtype, torch.dtype):
         return dtype
     return _DTYPES[np.dtype(dtype).name]
@@ -52,9 +51,11 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     ``a`` and ``b`` are dense symmetric matrices (numpy arrays or torch
     tensors); they are copied to ``device`` (default: ``a``'s own device
     for a tensor, else ``cuda``) in ``dtype`` (default: ``a``'s float type,
-    else float64).  Returns the ``n_vec`` lowest eigenvalues ascending and
-    their eigenvectors in columns, B-orthonormal for a generalized problem
-    (the dsygv convention).
+    else float64).  ``dtype='mixed'`` runs the pipeline in float32, then
+    refines the eigenpairs in float64 against ``a`` (and ``b``) as given
+    (event ``solve:refine``) and returns float64.  Returns the ``n_vec``
+    lowest eigenvalues ascending and their eigenvectors in columns,
+    B-orthonormal for a generalized problem (the dsygv convention).
     """
     n = int(a.shape[0])
     if solver in AUTO_NAMES:
@@ -74,7 +75,8 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     n_vec = n if n_vec is None else int(n_vec)
     if not 0 < n_vec <= n:
         raise ValueError(f"n_vec={n_vec} out of range for n={n}")
-    torch_dtype = _as_dtype(dtype, a)
+    mixed = isinstance(dtype, str) and dtype == "mixed"
+    torch_dtype = torch.float32 if mixed else _as_dtype(dtype, a)
     if device is None:
         device = a.device if isinstance(a, torch.Tensor) else "cuda"
     device = torch.device(device)
@@ -98,6 +100,20 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
         b_dev = torch.as_tensor(b).to(device=device, dtype=torch_dtype)
         w, z = pl.generalized_pipeline(ctx, a_dev, b_dev, n_vec, core,
                                        spec.reduction)
-    return EigenPairs(values=w[:n_vec], vectors=z[:, :n_vec],
+        del b_dev
+    values, vectors = w[:n_vec], z[:, :n_vec]
+    if mixed:
+        # refine against the caller's matrices in float64, not the
+        # float32 pipeline copies, which are freed first
+        t0 = time.time()
+        v64 = vectors.to(torch.float64)
+        del a_dev, w, z, values, vectors
+        a64 = torch.as_tensor(a).to(device=device, dtype=torch.float64)
+        b64 = None if b is None else \
+            torch.as_tensor(b).to(device=device, dtype=torch.float64)
+        memstats("solve:pre_refine")
+        values, vectors = refine_eigenpairs(a64, v64, b64)
+        ctx.tick("solve:refine", t0)
+    return EigenPairs(values=values, vectors=vectors,
                       meta={"solver": solver, "core": core, "panel": panel,
                             "device": str(device)})

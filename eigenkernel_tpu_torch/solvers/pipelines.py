@@ -13,6 +13,10 @@ Counterpart of ``eigenkernel_tpu/solvers/pipelines.py``:
               analog, :mod:`.twostage`) + the same tridiagonal solve
               + chase and band back-transforms
               'eigh' = ``torch.linalg.eigh`` (cuSOLVER on the card)
+              'jacobi' = block Jacobi (:mod:`..ops.jacobi`, the pair
+              eigh in kernel D2)
+              'qdwh' = QDWH spectral divide and conquer
+              (:mod:`..ops.qdwh`)
   recovery:   triangular solve or product with the stored inverse,
               matching the reduction
 
@@ -20,7 +24,8 @@ Each stage is timed into the context's :class:`EventLog` under the
 reference's hierarchical names (``solve:reduce_elpa``,
 ``reduce_generalized[_new]``, ``sep:tridiagonalize``,
 ``sep:full_to_band``, ``sep:band_to_tridiag``, ``sep:tridiag_eigh``,
-``sep:back_transform``, ``sep:eigh``, ``recovery_generalized``), with a
+``sep:back_transform``, ``sep:eigh``, ``sep:jacobi``, ``sep:qdwh_dc``,
+``recovery_generalized``), with a
 ``torch.cuda.synchronize()`` before each clock stops, and its model
 GFLOP/s as ``!<stage>_Gflops``.
 """
@@ -36,16 +41,9 @@ import torch
 from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
 from eigenkernel_tpu_torch.obs import flops as fl
 from eigenkernel_tpu_torch.obs.events import EventLog, barrier
-from eigenkernel_tpu_torch.ops import householder
+from eigenkernel_tpu_torch.ops import householder, jacobi, qdwh
 from eigenkernel_tpu_torch.ops import reduction as red
 from eigenkernel_tpu_torch.ops import tridiag as td
-
-# SEP cores of the registry that are still to be ported, with their
-# ROADMAP items
-_NOT_PORTED = {
-    "jacobi": "block-Jacobi core: ROADMAP slice 6",
-    "qdwh": "QDWH spectral divide-and-conquer core: ROADMAP slice 6",
-}
 
 
 @dataclass
@@ -100,23 +98,38 @@ def sep_eigh(ctx: SolverContext, a: torch.Tensor, n_vec: int):
     return w[:n_vec], z[:, :n_vec]
 
 
+def sep_jacobi(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+    """Block-Jacobi core (``ops/jacobi.py``): no sequential panel
+    recurrence, a batched pair eigh (kernel D2) and full-width products a
+    round; the panel width is the block width."""
+    w, z = _run(ctx, "sep:jacobi", jacobi.block_jacobi_eigh, a,
+                ctx.block_size, flops=fl.jacobi(a.shape[0]))
+    return w[:n_vec], z[:, :n_vec]
+
+
+def sep_qdwh(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+    """QDWH spectral divide-and-conquer core (``ops/qdwh.py``), a host
+    recursion on exact sizes.  The JAX core passes its GEMM block to the
+    Cholesky and triangular solves; here they are whole-matrix
+    ``torch.linalg`` calls, so there is no block to pass."""
+    w, z = _run(ctx, "sep:qdwh_dc", qdwh.spectral_dc_eigh, a,
+                flops=fl.qdwh_dc(a.shape[0]))
+    return w[:n_vec], z[:, :n_vec]
+
+
 SEP_CORES = {
     "one_stage": sep_one_stage,
     "two_stage": sep_two_stage,
     "eigh": sep_eigh,
+    "jacobi": sep_jacobi,
+    "qdwh": sep_qdwh,
 }
-
-
-def _core(core: str) -> Callable:
-    if core not in SEP_CORES:
-        raise NotImplementedError(_NOT_PORTED.get(core, f"SEP core '{core}'"))
-    return SEP_CORES[core]
 
 
 def standard_pipeline(ctx: SolverContext, a: torch.Tensor, n_vec: int,
                       core: str):
     """Standard EVP: run the SEP core (no padding in this package)."""
-    return _core(core)(ctx, a, n_vec)
+    return SEP_CORES[core](ctx, a, n_vec)
 
 
 _REDUCTIONS = {
@@ -135,7 +148,7 @@ def generalized_pipeline(ctx: SolverContext, a: torch.Tensor,
     """Generalized EVP: reduce, SEP core, recover.  The vectors
     ``x = L^{-T} z`` are B-orthonormal as they come (the dsygv
     convention): no renormalizing."""
-    sep = _core(core)
+    sep = SEP_CORES[core]
     n = a.shape[0]
     event, reduce, model = _REDUCTIONS[reduction_style]
     r = _run(ctx, event, reduce, a, b, flops=model(n))

@@ -2,9 +2,7 @@
 
 A copy of ``eigenkernel_tpu/solvers/registry.py``: the same 20 names and
 specs, so CLI invocations and ``log.json`` files are comparable between
-the two packages.  Which names run in this package is decided in
-:mod:`eigenkernel_tpu_torch.solvers.api`; the others raise
-``NotImplementedError`` naming their ROADMAP item.  ``resolve_auto``'s
+the two packages; every name runs in this package.  ``resolve_auto``'s
 TPU branches never fire here (the backend is ``cuda`` or ``cpu``), so
 ``auto`` resolves to the one-stage core.
 
@@ -41,7 +39,7 @@ class SolverSpec:
     generalized: bool
     selecting: bool
     family: str              # lapack | scalapack | eigenexa | elpa | extra
-    core: str                # eigh | one_stage | two_stage
+    core: str                # eigh | one_stage | two_stage | jacobi | qdwh
     reduction: Optional[str]  # None | 'scalapack' | 'elpa'
     single_device: bool = False
     description: str = ""

@@ -19,6 +19,11 @@ at).  The recurrences, in the arithmetic of their kernels:
 * ``deflate``: D1's step (``csrc/dc_deflate.cu``), ``r = sqrt(up^2 +
   u^2)``, ``c = u / r``, ``s = up / r``, the coupling test and the rotated
   carry;
+* ``pair_set``: one set of D2 (``csrc/pair_jacobi.cu``): the skip test and
+  the rotation (tau, t, c, s: two square roots and three divisions in a
+  row), then a row and a column update that feed the next set's a_pq,
+  with D2's three block barriers (in a block of one warp, their least
+  cost);
 
 in float64 and float32.  A kernel's chain floor is its serial steps per
 thread times this latency: what a serial recurrence allows however wide
@@ -26,9 +31,10 @@ the card.  The tool ends by printing the floors of B1 and B2 at the
 selecting path's shapes (k = 500 targets at n = 4096 and 16384): B1 runs
 ceil(iters / depth) passes of n steps (the depth its ``warps_per_target``
 gives on this card; one-step bisection, iters passes, beside it), B2 one
-forward and one backward row a row, at the clock the chain ran at; and
+forward and one backward row a row, at the clock the chain ran at;
 D1's at n = 4096 and 16384 for the full spectrum: the top merge of every
-level of the divide-and-conquer tree, K = 2 base 2^(l-1) steps.
+level of the divide-and-conquer tree, K = 2 base 2^(l-1) steps; and D2's
+for one sweep of a 128 x 128 pair block, 127 sets.
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ __global__ void chain(const T* __restrict__ v, T* out, long long* cyc,
         q[0] = ui;
       } else if (kind == 2) {
         q[0] = (dv[u] - mul_rn(ev[u], q[0])) / bv[u];
-      } else {
+      } else if (kind == 3) {
         // D1: the carry (dp, up) in (x[0], q[0]), pivmin as the tolerance
         const T di = dv[u], ui = ev[u];
         const T r = sqrt_rn(add_rn(mul_rn(q[0], q[0]), mul_rn(ui, ui)));
@@ -119,6 +125,27 @@ __global__ void chain(const T* __restrict__ v, T* out, long long* cyc,
                               mul_rn(mul_rn(cc, cc), di))
                      : di;
         q[0] = close ? r : ui;
+      } else {
+        // D2: a_pp, a_qq in dv, bv; a_pq carried in q[0]; the rows' and
+        // columns' other entries in ev, x[0]
+        const T app = dv[u], aqq = bv[u], apq = q[0];
+        const T thr = mul_rn(pivmin, sqrt_rn(fabs(mul_rn(app, aqq))));
+        T cc = T(1), sn = T(0);
+        if (fabs(apq) > thr) {
+          const T tau = div_rn(aqq - app, mul_rn(T(2), apq));
+          const T sg = tau >= T(0) ? T(1) : T(-1);
+          const T t = div_rn(sg, add_rn(fabs(tau),
+                                        sqrt_rn(add_rn(T(1),
+                                                       mul_rn(tau, tau)))));
+          cc = div_rn(T(1), sqrt_rn(add_rn(T(1), mul_rn(t, t))));
+          sn = mul_rn(t, cc);
+        }
+        __syncthreads();
+        const T row = mul_rn(cc, ev[u]) - mul_rn(sn, x[0]);
+        __syncthreads();
+        const T col = mul_rn(sn, row) + mul_rn(cc, ev[u]);
+        __syncthreads();
+        q[0] = add_rn(mul_rn(T(0.5), col), T(0.75));
       }
     }
   }
@@ -178,7 +205,8 @@ int all(const char* type, int sms) {
             run<T, 0, 4>("sturm", type, vals, 1, 1) |
             run<T, 1, 1>("solve_fwd", type, vals, 1, 1) |
             run<T, 2, 1>("solve_bwd", type, vals, 1, 1) |
-            run<T, 3, 1>("deflate", type, vals, 1, 1);
+            run<T, 3, 1>("deflate", type, vals, 1, 1) |
+            run<T, 4, 1>("pair_set", type, vals, 1, 1);
   for (int warps = 1; warps <= 32; warps *= 2)
     bad |= run<T, 0, 1>("sturm", type, vals, sms, warps);
   return bad;
@@ -231,6 +259,11 @@ def floors(out: str, sms: int) -> None:
                   f"bisection {seq:.3f} ms), B2 {b2:.3f} ms ({n} forward + "
                   f"{n} backward rows); D1 {d1:.3f} ms over the levels of "
                   f"the full spectrum ({dc_top_steps(n)} top-merge steps)")
+    for tag in ("f64", "f32"):
+        w = 128                   # the pair blocks of the default panel
+        d2 = (w - 1) * step_ns(chains, "pair_set", tag) / 1e6
+        print(f"chain floor {tag}: D2 {d2:.4f} ms a sweep of a {w} x {w} "
+              f"pair block ({w - 1} dependent sets)")
 
 
 def run_chains() -> str:

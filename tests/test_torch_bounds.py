@@ -76,6 +76,26 @@ def test_bounds_by_hand_at_small_shapes():
     assert ms == pytest.approx(ops / 67e12 * 1e3)
 
 
+def test_pair_eigh_bound_by_hand():
+    # D2 at w = 4: 3 sets a sweep, 18 w operations a rotation; 5 sweeps
+    # of 100 ns sets are the chain
+    ms, by = flops.bound_pair_eigh(2, 4, 5, 60, torch.float64, 100.0)
+    assert by == "operations"
+    assert ms == pytest.approx(max(18 * 4 * 60 / 34e12, 5 * 3 * 100e-9)
+                               * 1e3)
+    # many rotations, no chain: the operations at the CUDA-core peak
+    ms, by = flops.bound_pair_eigh(2, 4, 5, 10 ** 9, torch.float64, 0.0)
+    assert ms == pytest.approx(18 * 4 * 1e9 / 34e12 * 1e3)
+    # few rotations, no chain: the bytes bound it
+    ms, by = flops.bound_pair_eigh(32, 129, 3, 1000, torch.float32, 0.0)
+    nbytes = (2 * 32 * 129 * 129 + 32 * 129) * 4 + 8 * 32
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # odd w: w sets a sweep
+    ms, _ = flops.bound_pair_eigh(1, 5, 2, 0, torch.float64, 1e6)
+    assert ms == pytest.approx(2 * 5 * 1e6 * 1e-9 * 1e3)
+
+
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 84),
                                          (torch.float32, 119)])
 def test_chase_branch_flips_at_the_window_limit(dtype, limit):

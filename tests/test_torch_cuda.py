@@ -13,7 +13,8 @@ import scipy.linalg as sla
 import torch
 
 from eigenkernel_tpu_torch.ops import (backtransform, band, bulge, chase,
-                                       dc, sturm, tridiag_solve, wf_bt)
+                                       dc, jacobi, sturm, tridiag_solve,
+                                       wf_bt)
 from eigenkernel_tpu_torch.ops.tridiag import gershgorin_bounds, pivot_floor
 
 
@@ -451,6 +452,104 @@ def test_full_spectrum_solve_on_card_launches_d1(cuda_device, monkeypatch,
                   None if b is None else torch.tensor(b, device=cuda_device),
                   solver=solver)
     assert dc.LAUNCHES == dc._tree_shape(n)[1]
+    w = pairs.values.cpu().numpy()
+    v = pairs.vectors.cpu().numpy()
+    bb = np.eye(n) if b is None else b
+    w_ref = sla.eigh(a, bb, eigvals_only=True)
+    assert np.abs(w - w_ref).max() <= 1e-12 * np.abs(w_ref).max()
+    r = np.linalg.norm(a @ v - (bb @ v) * w[None, :], axis=0).max()
+    assert r <= 1e-12 * np.linalg.norm(a)
+    assert np.abs(v.T @ bb @ v - np.eye(n)).max() <= 1e-12
+
+
+def _pair_blocks(kind, m, w, dtype, device):
+    """m symmetric w x w blocks: random, already diagonal, or degenerate
+    (eigenvalues in runs of 8)."""
+    rng = np.random.default_rng(w + m)
+    if kind == "diagonal":
+        a = np.stack([np.diag(rng.standard_normal(w)) for _ in range(m)])
+    elif kind == "degenerate":
+        q, _ = np.linalg.qr(rng.standard_normal((w, w)))
+        lam = np.repeat(rng.standard_normal(-(-w // 8)), 8)[:w]
+        a = np.broadcast_to((q * lam) @ q.T, (m, w, w))
+    else:
+        a = rng.standard_normal((m, w, w))
+        a = a + a.transpose(0, 2, 1)
+    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "diagonal", "degenerate"])
+@pytest.mark.parametrize("w", [32, 128, 130])
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_eigh_kernel_matches_plain_on_card(cuda_device, dtype, m, w,
+                                                kind):
+    a = _pair_blocks(kind, m, w, dtype, cuda_device)
+    before = jacobi.LAUNCHES
+    got = jacobi.pair_eigh(a)
+    torch.cuda.synchronize()
+    assert jacobi.LAUNCHES == before + 1
+    want = jacobi.pair_eigh_plain(a)
+    for field in jacobi.PairEigh._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    if kind == "diagonal":
+        assert int(got.rotations.sum()) == 0 and (got.sweeps == 1).all()
+    else:
+        assert (got.rotations > 0).all()
+    a64, w64 = a.double().cpu().numpy(), got.values.double().cpu().numpy()
+    v = got.vectors.double().cpu().numpy()
+    ref = np.linalg.eigvalsh(a64)
+    scale = max(1.0, np.abs(ref).max())
+    # float32: some 10^4 rotations a block leave ~2e-5 (the phase 4 bar
+    # of the smoke, 1e-4, for both)
+    bar = 1e-13 if dtype == torch.float64 else 1e-4
+    assert np.abs(np.sort(w64, axis=1) - ref).max() <= bar * scale
+    assert np.abs(v.transpose(0, 2, 1) @ v - np.eye(w)).max() <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w,a_res,v_res", [
+    (torch.float64, 128, True, False), (torch.float32, 128, True, True),
+    (torch.float64, 168, True, False), (torch.float64, 200, False, False),
+    (torch.float32, 33, True, True)])
+def test_pair_eigh_placement_on_card(cuda_device, dtype, w, a_res, v_res):
+    # the block in shared memory where it fits (V^T too where both do),
+    # else in the scratch buffer: the same bits either way
+    isz = torch.empty((), dtype=dtype).element_size()
+    smem, got_a, got_v = jacobi.smem_bytes(w, isz)
+    assert (got_a, got_v) == (a_res, v_res)
+    assert smem <= 232448
+    a = _pair_blocks("random", 2, w, dtype, cuda_device)
+    got = jacobi.pair_eigh(a)
+    want = jacobi.pair_eigh_plain(a)
+    for field in jacobi.PairEigh._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["jacobi", "general_jacobi", "qdwh_dc",
+                                    "mixed"])
+def test_extra_cores_and_mixed_on_card(cuda_device, monkeypatch, solver):
+    from eigenkernel_tpu_torch.solvers import solve
+
+    monkeypatch.delenv("EK_TRIDIAG", raising=False)
+    rng = np.random.default_rng(7)
+    n = 300                               # ragged: the Jacobi core pads
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    m = rng.standard_normal((n, n))
+    b = m @ m.T / n + np.eye(n) if solver.startswith("general") else None
+    jacobi.LAUNCHES = 0
+    pairs = solve(torch.tensor(a, device=cuda_device),
+                  None if b is None else torch.tensor(b, device=cuda_device),
+                  solver="scalapack" if solver == "mixed" else solver,
+                  dtype="mixed" if solver == "mixed" else None,
+                  block_size=32)
+    if solver.endswith("jacobi"):
+        # 320 = 10 blocks of 32: 9 rounds a sweep, 12 sweeps
+        assert jacobi.LAUNCHES == 9 * 12
+    assert pairs.values.dtype == torch.float64
     w = pairs.values.cpu().numpy()
     v = pairs.vectors.cpu().numpy()
     bb = np.eye(n) if b is None else b

@@ -65,6 +65,23 @@ def test_stage_flops_equal_jax(monkeypatch, core, solver, k, tridiag):
                                        else fl.bisect_invit(N, kk))
 
 
+@pytest.mark.parametrize("solver,stage,model", [
+    ("jacobi", "sep:jacobi", fl.jacobi),
+    ("qdwh_dc", "sep:qdwh_dc", fl.qdwh_dc),
+])
+def test_extra_core_flops_equal_jax(monkeypatch, solver, stage, model):
+    # the panel only sets the Jacobi block: 32 keeps the plain pair eigh
+    # short, and N stays a multiple of it, so the JAX package does not pad
+    a = np.random.default_rng(4).standard_normal((N, N))
+    a = (a + a.T) / 2
+    got = _model_flops(monkeypatch, pipelines.SolverContext,
+                       lambda: solve(torch.tensor(a), solver=solver,
+                                     block_size=32))
+    ref = _model_flops(monkeypatch, jax_pipelines.SolverContext,
+                       lambda: jax_solve(a, solver=solver, block_size=32))
+    assert got == ref == {stage: model(N)}
+
+
 @pytest.mark.parametrize("solver,reduce", [
     ("general_elpa1", "solve:reduce_elpa"),
     ("general_scalapacknew_eigens", "reduce_generalized_new"),

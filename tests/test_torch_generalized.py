@@ -158,8 +158,9 @@ def test_standard_and_generalized_names_refuse_the_other_problem():
     with pytest.raises(ValueError, match="mismatch"):
         solve(torch.tensor(a), torch.tensor(b[:10, :10]),
               solver="general_elpa2")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        solve(torch.tensor(a), torch.tensor(b), solver="general_jacobi")
+    with pytest.raises(ValueError, match="partial"):
+        solve(torch.tensor(a), torch.tensor(b), solver="general_jacobi",
+              n_vec=5)
 
 
 def test_general_auto_resolves_as_jax():

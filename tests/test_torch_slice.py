@@ -154,9 +154,11 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
     monkeypatch.delenv("EK_TRIDIAG", raising=False)
     argv = ["--platform", "cpu", "-s", "scalapack_select", "-n", "3",
             str(mtx)]
-    if case == "matrix_b":            # a generalized core not ported yet
+    if case == "matrix_b":            # a B file of another size than A
+        mtx_b = tmp_path / "B.mtx"
+        _write_mtx(mtx_b, 31, 3)
         argv = ["--platform", "cpu", "-s", "general_jacobi", str(mtx),
-                str(mtx)]
+                str(mtx_b)]
     elif case == "num_processes":
         monkeypatch.setenv("EK_NUM_PROCESSES", "2")
     elif case == "no_card":
@@ -164,17 +166,57 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
         argv = argv[2:]                  # the default platform is cuda
     elif case == "unknown_solver":
         argv[3] = "nope"
-    elif case == "not_ported_core":
-        argv = ["--platform", "cpu", "-s", "jacobi", str(mtx)]
-    elif case == "mixed_dtype":
-        argv = ["--dtype", "mixed"] + argv
+    elif case == "not_ported_core":   # the mesh is not ported yet
+        argv = ["--platform", "cpu", "--mesh", "1,2", "-s", "jacobi",
+                str(mtx)]
+    elif case == "mixed_dtype":       # -n on a core that takes all pairs
+        argv = ["--dtype", "mixed", "--platform", "cpu", "-s", "jacobi",
+                "-n", "3", str(mtx)]
     elif case == "missing_file":
         argv[-1] = str(tmp_path / "absent.mtx")
-    elif case == "dc_core":           # the spectral divide and conquer
-        argv = ["--platform", "cpu", "-s", "qdwh_dc", str(mtx)]
+    elif case == "dc_core":           # --profile is not ported yet
+        argv = ["--platform", "cpu", "--profile", str(tmp_path / "prof"),
+                "-s", "qdwh_dc", str(mtx)]
     assert _run(port_main, tmp_path, argv) == 1
     assert "[Error]" in capsys.readouterr().err
     assert not (tmp_path / "eigenvalues.dat").exists()
+
+
+@pytest.mark.parametrize("solver,dtype", [
+    ("jacobi", "float64"), ("general_jacobi", "float64"),
+    ("qdwh_dc", "float64"), ("general_qdwh_dc", "float64"),
+    ("scalapack", "mixed"), ("general_elpa2", "mixed")])
+def test_cli_extra_cores_and_mixed_match_jax_cli(tmp_path, monkeypatch,
+                                                 solver, dtype):
+    # the names and the dtype that ran only in the JAX package before;
+    # the panel of 16 keeps the plain pair eigh short
+    monkeypatch.delenv("EK_TRIDIAG", raising=False)
+    n = 48
+    a = _sym(n, 12)
+    i, j = np.tril_indices(n)
+    files = [tmp_path / "A.mtx"]
+    write_matrix(str(files[0]), SparseMatrix(n, i, j, a[i, j]))
+    if solver.startswith("general"):
+        m = np.random.default_rng(13).standard_normal((n, n))
+        b = m @ m.T / n + np.eye(n)
+        files.append(tmp_path / "B.mtx")
+        write_matrix(str(files[1]), SparseMatrix(n, i, j, b[i, j]))
+    args = ["-s", solver, "--dtype", dtype, "--block-size", "16", "-c",
+            "-1", "-t", f"1,{n}"] + [str(f) for f in files]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    assert _run(jax_main, tmp_path / "jax", args) == 0
+    assert _run(port_main, tmp_path / "port",
+                ["--platform", "cpu"] + args) == 0
+    ev_j = np.loadtxt(tmp_path / "jax" / "eigenvalues.dat")
+    ev_p = np.loadtxt(tmp_path / "port" / "eigenvalues.dat")
+    assert ev_p.shape == (n, 2)
+    assert np.abs(ev_p[:, 1] - ev_j[:, 1]).max() <= 1e-11
+    names_j = [e["name"] for e in json.loads(
+        (tmp_path / "jax" / "log.json").read_text())["events"]]
+    names_p = [e["name"] for e in json.loads(
+        (tmp_path / "port" / "log.json").read_text())["events"]]
+    assert names_p == names_j
 
 
 def test_registry_names_equal_jax():
