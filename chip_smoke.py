@@ -57,10 +57,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     the bars of phase 4; D1 (the deflation scans, ``csrc/dc_deflate.cu``)
     must have been launched once a tree level.  D1 is then held against
     its plain version (``torch.equal`` on every record) on the operands
-    each level of the scalapack runs gave it, timed beside its bound (the
-    step latency from ``tools/div_chain.py``, run in phase 2); the whole
-    ``tridiag_dc`` is timed beside one ``torch.linalg.eigh`` of T, and one
-    run of it is traced with torch.profiler (kernels, D1's device time).
+    each level of the scalapack runs gave it, timed with CUDA events
+    beside its bound (the level's most close steps in a merge times the
+    step latency from ``tools/div_chain.py``, run in phase 2, or its
+    bytes) and its share of close steps; the whole ``tridiag_dc`` is
+    timed beside one ``torch.linalg.eigh`` of T, and one run of it a dtype
+    is traced with torch.profiler (kernels, D1's device time).
 11. Generalized problems at n = 4096: an ELSES-style A and an SPD overlap
     B of the same sparsity; ``general_scalapacknew_eigens`` (float64,
     float32), ``general_elpa2`` and ``general_scalapack_select -n 500``
@@ -91,7 +93,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     latency from ``tools/div_chain.py``) and one ``torch.linalg.eigh`` of
     the same batch (its library call); also D2 and that call on the
     (64, 64, 64) batch of tridiagonal blocks of divide and conquer's
-    leaves at n = 4096.
+    leaves at n = 4096.  Beside each D2 comparison,
+    ``tools/pair_jacobi_profile.py`` prints D2's cycles a set by phase
+    (an instrumented build, held equal to D2 bit for bit), and the smoke
+    prints the time D2's first design took on the same operands
+    (``FIRST_DESIGN_MS``).
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -129,6 +135,14 @@ N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
 N_DC = 4096                    # full spectrum through divide and conquer
 N_GEN, K_GEN = 4096, 500       # generalized problems
 N_X, K_X = 4096, 500           # the extra cores and --dtype mixed
+# D2's first design (one CTA a block: rows, then columns and V^T; kept in
+# tools/pair_jacobi_rowcol.cu) on the operands of phase 12's comparisons,
+# ms by CUDA events, from this script's run on an NVIDIA H100 80GB HBM3,
+# 700.00 W before the redesign (printed beside D2's time)
+FIRST_DESIGN_MS = {("f64", "path round 1"): 10.995,
+                   ("f64", "path round 756"): 0.716,
+                   ("f64", "random"): 11.073, ("f64", "dc leaves"): 1.513,
+                   ("f32", "random"): 7.982, ("f32", "dc leaves"): 1.164}
 
 
 class SmokeFailure(RuntimeError):
@@ -994,8 +1008,12 @@ def phase_eigensx(dev, tmp, n, seed, bt):
 def compare_deflate(levels, tag, step_ns):
     """D1 against its plain version, ``torch.equal`` on every record, on
     the operands each level of a path's divide and conquer gave it; each
-    level timed with CUDA events beside its bound.  Returns the sums over
-    the levels (one tridiag_dc) and the levels."""
+    level timed with CUDA events (the call: where the kernel takes
+    microseconds, the wrapper's host work bounds it) beside its bound (the
+    chain of the level's most close steps in a merge, or its bytes) and
+    the share of close steps.  Returns the sums over the levels (one
+    tridiag_dc) and the levels; ``chain_ms`` is the one-step-at-a-time
+    chain (K steps a level), the floor of the first design."""
     import torch
 
     from eigenkernel_tpu_torch.obs import flops
@@ -1022,15 +1040,21 @@ def compare_deflate(levels, tag, step_ns):
         check(all(torch.equal(getattr(got, f), getattr(plain, f))
                   for f in dc.Deflation._fields),
               f"dc_deflate {tag} nb={nb} K={K} kernel == plain bit for bit")
-        bound_ms, bound_by = flops.bound_deflate(nb, K, ds.dtype, step_ns)
         rot = int(got.rot_m.sum())
-        print(f"dc_deflate {tag}: nb={nb} K={K}, {rot} rotations, deepest "
-              f"chain {int(got.depths.max())}: kernel {ms:.4f} ms "
+        close_max = int(got.rot_m.sum(dim=1).max())
+        bound_ms, bound_by = flops.bound_deflate(nb, K, ds.dtype, step_ns,
+                                                 close_max)
+        print(f"dc_deflate {tag}: nb={nb} K={K}, {rot} close steps "
+              f"({100 * rot / (nb * K):.2f} % of the steps; at most "
+              f"{close_max} in a merge), deepest chain "
+              f"{int(got.depths.max())}: kernel {ms:.4f} ms "
               f"({1e6 * ms / K:.1f} ns a step), plain {plain_ms:.1f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+              f"bound {bound_ms:.4f} ms ({bound_by}), one-step-at-a-time "
+              f"chain {1e-6 * K * step_ns:.4f} ms")
         rows.append({"nb": nb, "K": K, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "rotations": rot})
+                     "rotations": rot,
+                     "close_share": rot / (nb * K), "close_max": close_max})
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("bound_ms", bound_ms),
                          ("chain_ms", 1e-6 * K * step_ns)):
@@ -1089,7 +1113,8 @@ def phase_dc(dev, tmp, chains):
     """Phase 10: the full spectrum through divide and conquer: -s
     scalapack (float64, float32), lapack and eigensx at n = 4096; then D1
     against its plain version on the scalapack runs' operands, the whole
-    tridiag_dc against one eigh of T, and one profiled tridiag_dc."""
+    tridiag_dc against one eigh of T, and one profiled tridiag_dc a
+    dtype."""
     import torch
 
     from eigenkernel_tpu_torch.ops import dc
@@ -1158,6 +1183,7 @@ def phase_dc(dev, tmp, chains):
         out["deflate"][tag].update(tridiag_dc_ms=dc_ms, eigh_ms=eigh_ms)
         del t
     out["profile"] = profile_dc(*tri["float64"])
+    out["profile_f32"] = profile_dc(*tri["float32"])
     print(f"launches on the divide-and-conquer paths: {launches}")
     return launches, out
 
@@ -1233,15 +1259,20 @@ def phase_generalized(dev, tmp):
     return launches, out, (path_a, path_b, ref)
 
 
-def compare_pair_eigh(a, label, set_ns):
+def compare_pair_eigh(a, label, set_ns, probe):
     """D2 against its plain version on the batch ``a``, ``torch.equal`` on
     values, vectors, sweeps and rotations; timed with CUDA events beside
-    its bound and one ``torch.linalg.eigh`` of the same batch (its library
-    call, which the port does not make on this path)."""
+    its bound, one ``torch.linalg.eigh`` of the same batch (its library
+    call, which the port does not make on this path) and the first
+    design's recorded time on the same operands; then, through
+    ``tools/pair_jacobi_profile.py`` (``probe``: its instrumented build of
+    D2), the cycles a set of each phase, the instrumented build held bit
+    for bit to the kernel."""
     import torch
 
     from eigenkernel_tpu_torch.obs import flops
     from eigenkernel_tpu_torch.ops import jacobi
+    from eigenkernel_tpu_torch.tools import pair_jacobi_profile
 
     tag = "f64" if a.dtype == torch.float64 else "f32"
     m, w = a.shape[0], a.shape[1]
@@ -1280,11 +1311,20 @@ def compare_pair_eigh(a, label, set_ns):
     bar = 1e-13 if tag == "f64" else 1e-4
     check(ev_err <= bar, f"pair_jacobi {tag} {label} values == eigvalsh "
                          f"({ev_err:.3e} <= {bar:g} of the largest)")
+    first = FIRST_DESIGN_MS.get((tag, label))
+    print(f"  the first design on the same operands (recorded): "
+          f"{'none' if first is None else f'{first:.3f} ms'}")
+    phases = pair_jacobi_profile.profile(probe, a)
+    print("  cycles a set in block 0:\n"
+          + pair_jacobi_profile.describe(phases))
+    check(phases["cluster"]["equal"],
+          f"pair_jacobi {tag} {label} instrumented build == the kernel bit "
+          f"for bit")
     return {"m": m, "w": w, "dtype": tag, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err, "sweeps": sweeps,
             "rotations": rot, "us_per_set": 1e3 * ms / sets,
-            "set_ns": set_ns}
+            "set_ns": set_ns, "cycles_a_set": phases["cluster"]["cycles"]}
 
 
 def refine_by_steps(a64, v32, ref, steps=(4, 6, 8, 10, 12)):
@@ -1322,7 +1362,7 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
 
     from eigenkernel_tpu_torch.ops import dc, jacobi
     from eigenkernel_tpu_torch.solvers import api
-    from eigenkernel_tpu_torch.tools import div_chain
+    from eigenkernel_tpu_torch.tools import div_chain, pair_jacobi_profile
 
     os.environ.pop("EK_TRIDIAG", None)
     mat, path = write_elses(tmp, N_X, seed=10)
@@ -1406,8 +1446,11 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
                           "index_ms": "index"}, warm=False)
     del jac_args
     # D2 on the float64 path's first and last round, a random batch and
-    # the dc leaves' batch; its bound from this card's set latency
+    # the dc leaves' batch; its bound from this card's set latency; the
+    # cycles a set by phase from an instrumented build beside it
     out["pair_eigh"] = {}
+    with tempfile.TemporaryDirectory() as ptmp:
+        probe = pair_jacobi_profile.build_designs(ptmp, ("cluster",))
     for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         set_ns = div_chain.step_ns(chains, "pair_set", tag)
         rows = []
@@ -1415,15 +1458,16 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
             check(ends["calls"] == rounds * 12,
                   f"recorded the {rounds * 12} pair eighs of the path")
             rows.append(dict(compare_pair_eigh(ends["first"][0],
-                                               "path round 1", set_ns),
+                                               "path round 1", set_ns,
+                                               probe),
                              label="path round 1"))
             rows.append(dict(compare_pair_eigh(
-                ends["last"][0], f"path round {rounds * 12}", set_ns),
-                label=f"path round {rounds * 12}"))
+                ends["last"][0], f"path round {rounds * 12}", set_ns,
+                probe), label=f"path round {rounds * 12}"))
         rng = np.random.default_rng(11)
         x = rng.standard_normal((32, 128, 128))
         x = torch.tensor(x + x.transpose(0, 2, 1), dtype=dtype, device=dev)
-        rows.append(dict(compare_pair_eigh(x, "random", set_ns),
+        rows.append(dict(compare_pair_eigh(x, "random", set_ns, probe),
                          label="random (32, 128, 128)"))
         base = dc._tree_shape(N_X)[0]
         nb = N_X // base
@@ -1432,7 +1476,8 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
         t = torch.tensor(np.stack([np.diag(d[i]) + np.diag(e[i], 1)
                                    + np.diag(e[i], -1) for i in range(nb)]),
                          dtype=dtype, device=dev)
-        rows.append(dict(compare_pair_eigh(t, "dc leaves", set_ns),
+        rows.append(dict(compare_pair_eigh(t, "dc leaves", set_ns,
+                                           probe),
                          label=f"dc leaves ({nb}, {base}, {base})"))
         out["pair_eigh"][tag] = rows
     del ends
@@ -1590,6 +1635,7 @@ def main() -> int:
                              f"one tridiag_dc (path operands)",
                     "dtype": "float64", "float32": dc_out["deflate"]["f32"],
                     "path_checks": [dc_out["profile"],
+                                    dc_out["profile_f32"],
                                     {"launches_generalized":
                                      launches_gen["deflate"]}]})
     # D2: the float64 jacobi path's first-round pair blocks (dense, the

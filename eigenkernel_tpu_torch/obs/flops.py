@@ -210,16 +210,21 @@ def bound_chase_bt(n: int, k: int, b: int, dtype):
                   PEAK_FP64_TENSOR if isz == 8 else PEAK_FP32)
 
 
-def bound_deflate(nb: int, K: int, dtype, step_ns: float):
+def bound_deflate(nb: int, K: int, dtype, step_ns: float,
+                  close_steps: int):
     """D1 on one level of nb merges of K steps: the larger of its bytes
     (reads the poles, weights, type-1 mask and tolerances; writes four
     value planes, four index planes, two flag planes and the carries) over
-    the memory rate and its chain, K dependent steps of ``step_ns`` each
-    (the merges run side by side)."""
+    the memory rate and its chain: ``close_steps`` (the most close steps of
+    any merge of the level) dependent steps of ``step_ns`` each.  Only a
+    close step passes on a carry computed from the one before it (an alive
+    step that is not close resets the carry to its own inputs), so no
+    order of evaluation avoids that chain, and the merges run side by
+    side."""
     isz = dtype.itemsize
     nbytes = nb * K * (2 * isz + 1) + nb * isz \
         + nb * K * (4 * isz + 4 * 8 + 2) + nb * (2 * isz + 8 + 1)
-    t_chain, t_bytes = K * step_ns * 1e-9, nbytes / MEM_RATE
+    t_chain, t_bytes = close_steps * step_ns * 1e-9, nbytes / MEM_RATE
     if t_chain >= t_bytes:
         return 1e3 * t_chain, "operations"
     return 1e3 * t_bytes, "bytes"

@@ -173,7 +173,8 @@ def deflate_scan(ds: torch.Tensor, us: torch.Tensor, alive: torch.Tensor,
 
 
 def _launch(ds, us, alive, tol) -> Deflation:
-    """D1 on checked CUDA operands: one warp a merge."""
+    """D1 on checked CUDA operands: one CTA a merge, every step speculated
+    at once and the steps after each close one resolved by a warp."""
     global LAUNCHES
     nb, K = ds.shape
     dtype, dev = ds.dtype, ds.device

@@ -18,7 +18,8 @@ a smaller b, and falls back to a dense eigh where none fits; this one
 never does.
 
 The pair eigh is the hand-written kernel D2 (``csrc/pair_jacobi.cu``) on a
-CUDA tensor, one launch a round, and its plain version
+CUDA tensor, one launch a round (a cluster of two CTAs a block: A and the
+rotation chain on one SM, V^T on the other), and its plain version
 :func:`pair_eigh_plain` on a CPU tensor: a two-sided cyclic Jacobi in the
 parallel round-robin order on each pair block, written in the kernel's
 arithmetic order.  The JAX package calls a library eigh there; this is
@@ -172,9 +173,9 @@ def pair_eigh(a: torch.Tensor) -> PairEigh:
 
 
 def smem_bytes(w: int, itemsize: int) -> tuple:
-    """(dynamic shared memory bytes, A resident, V resident) of D2's
-    launch at width w: the source's ``ek_pair_jacobi_smem`` and
-    ``ek_pair_jacobi_resident``."""
+    """(dynamic shared memory bytes of each CTA, A resident in CTA 0,
+    V^T resident in CTA 1) of D2's launch at width w: the source's
+    ``ek_pair_jacobi_smem`` and ``ek_pair_jacobi_resident``."""
     lib = build.library()
     flags = lib.ek_pair_jacobi_resident(w, itemsize)
     return lib.ek_pair_jacobi_smem(w, itemsize), bool(flags & 1), \
@@ -182,7 +183,7 @@ def smem_bytes(w: int, itemsize: int) -> tuple:
 
 
 def _launch(a: torch.Tensor) -> PairEigh:
-    """D2 on a checked CUDA batch: one CTA a block."""
+    """D2 on a checked CUDA batch: a cluster of two CTAs a block."""
     global LAUNCHES
     m, w = a.shape[0], a.shape[1]
     dtype, dev = a.dtype, a.device

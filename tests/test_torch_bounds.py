@@ -76,6 +76,22 @@ def test_bounds_by_hand_at_small_shapes():
     assert ms == pytest.approx(ops / 67e12 * 1e3)
 
 
+def test_deflate_bound_by_hand():
+    # D1's chain is the close steps of the level's longest-chained merge
+    # at the measured step latency; without close steps, its bytes
+    nbytes = 32 * 128 * 17 + 32 * 8 + 32 * 128 * 66 + 32 * 25
+    ms, by = flops.bound_deflate(32, 128, torch.float64, 200.0, 0)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    ms, by = flops.bound_deflate(32, 128, torch.float64, 200.0, 100)
+    assert by == "operations"
+    assert ms == pytest.approx(100 * 200e-9 * 1e3)
+    # float32: four bytes a value
+    nbytes = 4096 * 9 + 4 + 4096 * 50 + 17
+    ms, by = flops.bound_deflate(1, 4096, torch.float32, 100.0, 0)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
 def test_pair_eigh_bound_by_hand():
     # D2 at w = 4: 3 sets a sweep, 18 w operations a rotation; 5 sweeps
     # of 100 ns sets are the chain

@@ -12,9 +12,9 @@ import pytest
 import scipy.linalg as sla
 import torch
 
-from eigenkernel_tpu_torch.ops import (backtransform, band, bulge, chase,
-                                       dc, jacobi, sturm, tridiag_solve,
-                                       wf_bt)
+from eigenkernel_tpu_torch.ops import (backtransform, band, build, bulge,
+                                       chase, dc, jacobi, sturm,
+                                       tridiag_solve, wf_bt)
 from eigenkernel_tpu_torch.ops.tridiag import gershgorin_bounds, pivot_floor
 
 
@@ -374,14 +374,17 @@ def test_two_stage_solve_on_card_launches_its_kernels(cuda_device,
 
 def _deflate_input(kind, nb, K, dtype, device):
     """One level's scan operands: well separated poles (no deflation),
-    rho = 0 (every entry type-1 deflated) or runs of 8 equal poles (dense
-    type-2 chains); tol as _merge_one forms it."""
+    rho = 0 (every entry type-1 deflated), runs of 8 equal poles (dense
+    type-2 chains) or all poles equal (one chain through every alive
+    entry: D1's speculation never holds); tol as _merge_one forms it."""
     rng = np.random.default_rng(K + nb)
     ds = np.sort(rng.standard_normal((nb, K)), axis=1)
     if kind == "none":
         ds = np.arange(K) + rng.uniform(-0.25, 0.25, (nb, K))
     elif kind == "chains":
         ds = np.repeat(ds[:, ::8], 8, axis=1)[:, :K]
+    elif kind == "allclose":                 # every alive step close
+        ds = np.repeat(ds[:, :1], K, axis=1)
     us = rng.standard_normal((nb, K)) / np.sqrt(K)
     rho = 0.0 if kind == "dead" else 1.0
     tol = 8 * torch.finfo(dtype).eps * np.abs(ds).max(axis=1)
@@ -391,7 +394,7 @@ def _deflate_input(kind, nb, K, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["none", "dead", "chains"])
+@pytest.mark.parametrize("kind", ["none", "dead", "chains", "allclose"])
 @pytest.mark.parametrize("K", [128, 130, 4096])
 @pytest.mark.parametrize("nb", [1, 32])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -408,6 +411,9 @@ def test_deflate_kernel_matches_plain_on_card(cuda_device, dtype, nb, K,
     rot = int(got.rot_m.sum())
     if kind == "chains":
         assert rot > 0 and int(got.depths.max()) >= 6
+    elif kind == "allclose":
+        assert rot == int(alive.sum()) - nb
+        assert int(got.depths.max()) >= K // 2
     else:
         assert rot == 0
 
@@ -463,11 +469,19 @@ def test_full_spectrum_solve_on_card_launches_d1(cuda_device, monkeypatch,
 
 
 def _pair_blocks(kind, m, w, dtype, device):
-    """m symmetric w x w blocks: random, already diagonal, or degenerate
+    """m symmetric w x w blocks: random, already diagonal, sparse (a
+    diagonal and 16 weak couplings: few sweeps at any w) or degenerate
     (eigenvalues in runs of 8)."""
     rng = np.random.default_rng(w + m)
     if kind == "diagonal":
         a = np.stack([np.diag(rng.standard_normal(w)) for _ in range(m)])
+    elif kind == "sparse":
+        a = np.stack([np.diag(rng.standard_normal(w)) for _ in range(m)])
+        for b in range(m):
+            i, j = rng.choice(w, size=(2, 16))
+            c = 0.1 * rng.standard_normal(16)
+            a[b, i, j] += c
+            a[b, j, i] += c
     elif kind == "degenerate":
         q, _ = np.linalg.qr(rng.standard_normal((w, w)))
         lam = np.repeat(rng.standard_normal(-(-w // 8)), 8)[:w]
@@ -481,10 +495,12 @@ def _pair_blocks(kind, m, w, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "diagonal", "degenerate"])
 @pytest.mark.parametrize("w", [32, 128, 130])
-@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("m", [1, 32, 100])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_pair_eigh_kernel_matches_plain_on_card(cuda_device, dtype, m, w,
                                                 kind):
+    # m = 100: 200 CTAs in clusters of two, more than the card holds at
+    # once
     a = _pair_blocks(kind, m, w, dtype, cuda_device)
     before = jacobi.LAUNCHES
     got = jacobi.pair_eigh(a)
@@ -508,23 +524,96 @@ def test_pair_eigh_kernel_matches_plain_on_card(cuda_device, dtype, m, w,
     assert np.abs(v.transpose(0, 2, 1) @ v - np.eye(w)).max() <= bar
 
 
+def _pair_smem(w, isz):
+    """D2's shared memory by its layout: a set's table ((c, s) and the
+    pair packed with its flag, for each of the P pairs, 16-byte aligned);
+    a ring of 8 slots, or as many tables as fit; CTA 0 one table, a
+    barrier a slot and A (w rows of stride w + 1) where it fits; CTA 1 the
+    ring's tables, a barrier a slot and V^T where it fits; both launch
+    with the larger."""
+    P = (w + 1) // 2
+    table = (2 * P * isz + 4 * P + 15) // 16 * 16
+    ring = min(8, 232448 // (table + 8))
+    cta0, cta1 = table + 8 * ring, ring * (table + 8)
+    a_res = cta0 + w * (w + 1) * isz <= 232448
+    v_res = cta1 + w * w * isz <= 232448
+    cta0 += a_res * w * (w + 1) * isz
+    cta1 += v_res * w * w * isz
+    return max(cta0, cta1), a_res, v_res
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,w,a_res,v_res", [
-    (torch.float64, 128, True, False), (torch.float32, 128, True, True),
+    (torch.float64, 128, True, True), (torch.float32, 128, True, True),
     (torch.float64, 168, True, False), (torch.float64, 200, False, False),
     (torch.float32, 33, True, True)])
 def test_pair_eigh_placement_on_card(cuda_device, dtype, w, a_res, v_res):
-    # the block in shared memory where it fits (V^T too where both do),
-    # else in the scratch buffer: the same bits either way
+    # A in CTA 0's shared memory and V^T in CTA 1's where each fits (both
+    # at the path's w = 128, float64 too), else A in the scratch buffer
+    # and V^T in the output: the same bits either way
     isz = torch.empty((), dtype=dtype).element_size()
     smem, got_a, got_v = jacobi.smem_bytes(w, isz)
     assert (got_a, got_v) == (a_res, v_res)
+    assert (smem, got_a, got_v) == _pair_smem(w, isz)
     assert smem <= 232448
     a = _pair_blocks("random", 2, w, dtype, cuda_device)
     got = jacobi.pair_eigh(a)
     want = jacobi.pair_eigh_plain(a)
     for field in jacobi.PairEigh._fields:
         assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["launch", "width"])
+def test_pair_eigh_launch_failure_raises_on_card(cuda_device, monkeypatch,
+                                                 fault):
+    # a launch the card refuses (here: the launch returning a CUDA error
+    # code, or a block wider than the kernel takes) raises; the plain
+    # version never stands in on a CUDA tensor
+    def no_plain(a):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(jacobi, "pair_eigh_plain", no_plain)
+    if fault == "launch":
+        lib = build.library()
+        monkeypatch.setattr(lib, "ek_pair_jacobi_f64",
+                            lambda *args: 912)
+        a = _pair_blocks("random", 2, 128, torch.float64, cuda_device)
+        with pytest.raises(build.KernelLaunchError, match="912"):
+            jacobi.pair_eigh(a)
+    else:
+        # float64 w = 23,243: one set's table no longer fits the ring's
+        # one slot; float32 w = 32,768: past the packed pair's 15 bits
+        lib = build.library()
+        assert lib.ek_pair_jacobi_f64(0, 1, 23243, 1, 0, 0, 0, 0, 0) != 0
+        assert lib.ek_pair_jacobi_f32(0, 1, 32768, 1, 0, 0, 0, 0, 0) != 0
+        a = torch.eye(23243, dtype=torch.float64, device=cuda_device)[None]
+        with pytest.raises(build.KernelLaunchError):
+            jacobi.pair_eigh(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,w,ring", [
+    (torch.float64, 1100, 8), (torch.float32, 2051, 8),
+    (torch.float64, 3001, 7)])
+def test_pair_eigh_wide_block_on_card(cuda_device, dtype, w, ring):
+    # wider than two pairs a thread (1,100), past 11 bits of a packed
+    # pair with a bye (2,051), and a ring of fewer than 8 slots (3,001):
+    # the runtime-w kernel, A in the scratch buffer, V^T in the output,
+    # bit for bit
+    isz = torch.empty((), dtype=dtype).element_size()
+    P = (w + 1) // 2
+    table = (2 * P * isz + 4 * P + 15) // 16 * 16
+    assert min(8, 232448 // (table + 8)) == ring
+    smem, a_res, v_res = jacobi.smem_bytes(w, isz)
+    assert (smem, a_res, v_res) == _pair_smem(w, isz)
+    assert not a_res and not v_res
+    a = _pair_blocks("sparse", 1, w, dtype, cuda_device)
+    got = jacobi.pair_eigh(a)
+    want = jacobi.pair_eigh_plain(a)
+    for field in jacobi.PairEigh._fields:
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    assert int(got.rotations.sum()) > 0
 
 
 @pytest.mark.cuda

@@ -195,10 +195,14 @@ def _scan_numpy(ds, us, alive, tol):
 
 def _scan_case(kind, dtype, nb=3, K=70):
     rng = np.random.default_rng({"none": 1, "some": 2, "full": 3,
-                                 "dead": 4}[kind])
+                                 "dead": 4, "sparse": 5}[kind])
+    if kind == "sparse":
+        K = 1100
     ds = np.sort(rng.standard_normal((nb, K)), axis=1)
-    if kind == "none":            # poles at least 0.5 apart
+    if kind in ("none", "sparse"):  # poles at least 0.5 apart
         ds = np.arange(K) + rng.uniform(-0.25, 0.25, (nb, K))
+    if kind == "sparse":          # two pairs of equal poles, far apart
+        ds[:, 4], ds[:, 1091] = ds[:, 3], ds[:, 1090]
     elif kind == "some":          # pairs of equal poles
         ds[:, 1::3] = ds[:, 0::3][:, :ds[:, 1::3].shape[1]]
     elif kind == "full":          # every pole equal: one long chain
@@ -238,6 +242,140 @@ def test_deflate_scan_plain_matches_numpy_transcription(kind, dtype):
         assert n_rot > 0 and 0 <= deepest < 10
     else:
         assert deepest == ds.shape[1] - 2      # one chain through every pole
+
+
+def _step_numpy(di, ui, al, tl, has, dp, up):
+    """One step of the scan from the carry (has, dp, up), as the kernel's
+    ``step``: (c, sn, close, fin_prev, fin_self, fin_d, fin_u) and the
+    carried (dp, up)."""
+    r = np.sqrt(up * up + ui * ui)
+    r_safe = r.dtype.type(1) if r == 0 else r
+    c, sn = ui / r_safe, up / r_safe
+    close = has and al and abs((di - dp) * c * sn) <= tl
+    fin_prev, fin_self = has and al and not close, not al
+    fin_d = c * c * dp + sn * sn * di if close else \
+        (di if fin_self else dp)
+    fin_u = up if fin_prev else up.dtype.type(0)
+    if al:
+        dp, up = (sn * sn * dp + c * c * di, r) if close else (di, ui)
+    return (c, sn, close, fin_prev, fin_self, fin_d, fin_u), (dp, up)
+
+
+def _record(i, o, ip, depth):
+    c, sn, close, fin_prev, fin_self, fin_d, fin_u = o
+    return (i if fin_self else ip, fin_d, fin_u,
+            close or fin_prev or fin_self, ip, i, c, sn, close, depth)
+
+
+def _speculate_resolve_numpy(ds, us, alive, tol):
+    """Kernel D1's walk for one merge, in numpy scalars and Python ints
+    for the masks: the alive mask a word of 32 steps (a ballot), the last
+    alive step up to each word; every step speculated from the reset
+    carry of its last alive step, the close ones marked in a second mask;
+    then the close mask searched 32 words a ballot, and from each close
+    step on the steps recomputed one at a time with the real carry until
+    an alive step comes out not close."""
+    K, zero = len(ds), ds.dtype.type(0)
+    nw = -(-K // 32)
+    alive_bits = [sum(1 << k for k in range(32)
+                      if 32 * w + k < K and alive[32 * w + k])
+                  for w in range(nw)]
+    last_upto, last = [], -1
+    for w in range(nw):
+        if alive_bits[w]:
+            last = 32 * w + alive_bits[w].bit_length() - 1
+        last_upto.append(last)
+    recs, close_bits = [None] * K, [0] * nw
+    for i in range(K):                       # every step at once
+        w = i >> 5
+        below = alive_bits[w] & ((1 << (i & 31)) - 1)
+        pa = 32 * w + below.bit_length() - 1 if below else \
+            (last_upto[w - 1] if w else -1)
+        has = pa >= 0
+        o, _ = _step_numpy(ds[i], us[i], bool(alive[i]), tol, has,
+                           ds[pa] if has else zero, us[pa] if has else zero)
+        recs[i] = _record(i, o, pa if has else 0, 0 if o[2] else -1)
+        if o[2]:
+            close_bits[w] |= 1 << (i & 31)
+    serial, pos, walked = False, 0, 0
+    has, ip, dp, up, last_i, last_d = False, 0, zero, zero, -1, 0
+    while pos < K:
+        if not serial:
+            w = pos >> 5
+            first = close_bits[w] & ~((1 << (pos & 31)) - 1)
+            c = K
+            if first:
+                c = 32 * w + (first & -first).bit_length() - 1
+            else:
+                for w0 in range(w + 1, nw, 32):   # a ballot of 32 words
+                    hit = [k for k in range(32)
+                           if w0 + k < nw and close_bits[w0 + k]]
+                    if hit:
+                        cb = close_bits[w0 + hit[0]]
+                        c = 32 * (w0 + hit[0]) + (cb & -cb).bit_length() - 1
+                        break
+            if c >= K:
+                break
+            ip = recs[c][4]                   # its partner, rot_ip
+            dp, up, has, last_i, last_d = ds[ip], us[ip], True, -1, 0
+            serial, pos = True, c
+        i0 = pos & ~31
+        j = pos - i0
+        while j < min(32, K - i0):            # one batch, step by step
+            i = i0 + j
+            al = bool(alive[i])
+            o, carry = _step_numpy(ds[i], us[i], al, tol, has, dp, up)
+            depth = last_d + 1 if o[2] and ip == last_i else 0
+            recs[i] = _record(i, o, ip, depth if o[2] else -1)
+            walked += 1
+            if o[2]:
+                last_i, last_d = i, depth
+            j += 1
+            if al:
+                (dp, up), ip, has = carry, i, True
+                if not o[2]:
+                    serial = False
+                    break
+        pos = i0 + j
+    if not serial:
+        has = last_upto[-1] >= 0
+        ip = last_upto[-1] if has else 0
+        dp, up = (ds[ip], us[ip]) if has else (zero, zero)
+    return recs, (has, ip, dp, up), walked
+
+
+@pytest.mark.parametrize("kind", ["none", "some", "full", "dead", "sparse"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_deflate_speculate_and_resolve_matches_plain(kind, dtype):
+    # the kernel's ordering (speculate every step, then recompute after
+    # each close step) gives the plain scan's bits: separated poles, pairs
+    # of equal poles with type-1 entries between, all poles equal (every
+    # step close: the speculation's worst), every entry type-1, and two
+    # close steps 1,087 steps apart (the mask searched past 32 words);
+    # K = 70 and 1100, not multiples of 32
+    ds, us, alive, tol = _scan_case(kind, dtype)
+    got = dc.deflate_scan_plain(torch.tensor(ds), torch.tensor(us),
+                                torch.tensor(alive), torch.tensor(tol))
+    fields = ("fin_idx", "fin_d", "fin_u", "fin_valid", "rot_ip", "rot_i",
+              "rot_c", "rot_s", "rot_m", "depths")
+    K = ds.shape[1]
+    for b in range(ds.shape[0]):
+        recs, carry, walked = _speculate_resolve_numpy(ds[b], us[b],
+                                                       alive[b], tol[b])
+        for f, col in zip(fields, zip(*recs)):
+            want = getattr(got, f)[b].numpy()
+            assert np.array_equal(np.array(col, dtype=want.dtype), want), f
+        for f, val in zip(("has_p", "ip", "dp", "up"), carry):
+            assert getattr(got, f)[b].item() == val, f
+        n_close = int(got.rot_m[b].sum())
+        if kind in ("none", "dead"):
+            assert n_close == 0 and walked == 0
+        elif kind == "full":
+            assert n_close == K - 1 and walked == K - 1
+        elif kind == "sparse":
+            assert n_close == 2 and walked == 4
+        else:
+            assert 0 < n_close and walked < K
 
 
 def test_deflate_scan_refuses_what_the_kernel_does_not_take():

@@ -97,6 +97,154 @@ def test_pair_eigh_plain_edges(kind):
         assert got.rotations[1] == 0 and got.sweeps[1] == 1
 
 
+def _set_params(a, r):
+    """Kernel D2's parameter phase for set r of the block ``a`` (w x w,
+    numpy): per circle-method pair (x, y), p = min, q = max, the rotation
+    (c, s) and the flag (1 rotate, 0 skip, -1 bye)."""
+    w, dt = a.shape[0], a.dtype.type
+    x, y = jacobi._tournament(w + (w & 1))[r].T
+    p, q = np.minimum(x, y), np.maximum(x, y)
+    ap = np.pad(a, ((0, 1), (0, 1)))       # row and column w: the bye's
+    app, aqq, apq = ap[p, p], ap[q, q], ap[p, q]
+    with np.errstate(all="ignore"):
+        thr = np.finfo(a.dtype).eps * np.sqrt(np.abs(app * aqq))
+        tau = (aqq - app) / (dt(2) * apq)
+        t = np.where(tau >= 0, dt(1), dt(-1)) / (
+            np.abs(tau) + np.sqrt(dt(1) + tau * tau))
+        c = dt(1) / np.sqrt(dt(1) + t * t)
+        s = t * c
+    f = np.where(q >= w, -1, (np.abs(apq) > thr).astype(int))
+    return p, q, c, s, f
+
+
+def _rows_then_columns(a, p, q, c, s, f):
+    """The plain version's step: the rows of the rotating pairs, then
+    their columns, then a_pq = a_qp = 0 for every pair but a bye."""
+    x = np.pad(a, ((0, 1), (0, 1)))
+    m = f == 1
+    pm, qm, cm, sm = p[m], q[m], c[m], s[m]
+    xp, xq = x[pm, :].copy(), x[qm, :].copy()
+    x[pm, :] = cm[:, None] * xp - sm[:, None] * xq
+    x[qm, :] = sm[:, None] * xp + cm[:, None] * xq
+    xp, xq = x[:, pm].copy(), x[:, qm].copy()
+    x[:, pm] = cm[None, :] * xp - sm[None, :] * xq
+    x[:, qm] = sm[None, :] * xp + cm[None, :] * xq
+    live = f >= 0
+    x[p[live], q[live]] = 0
+    x[q[live], p[live]] = 0
+    return x[:-1, :-1]
+
+
+def _xy(r, w):
+    """The circle method's pairs (x, y) of set r, in the kernel's order."""
+    return jacobi._tournament(w + (w & 1))[r].T
+
+
+def _tiles(a, x, y, c, s, f):
+    """The same step as kernel D2 takes it: for every pair of pairs (i, j)
+    the 2 x 2 tile A[{x_i, y_i}, {x_j, y_j}] in the circle method's order,
+    rotated by the rows of pair i and then by the columns of pair j from
+    that tile's entries alone, with the signed sine (s where x < y, else
+    -s), and a_pq = a_qp = 0 on the diagonal tiles (every tile at once)."""
+    dt = a.dtype.type
+    s = np.where(x < y, s, -s)
+    b = np.pad(a, ((0, 1), (0, 1)))
+    rows = (x[:, None], y[:, None])
+    cols = (x[None, :], y[None, :])
+    t = [[b[r, k] for k in cols] for r in rows]   # t[row][col]
+    ri, ci, si = (f == 1)[:, None], c[:, None], s[:, None]
+    t = [[np.where(ri, ci * t[0][k] - si * t[1][k], t[0][k]) for k in (0, 1)],
+         [np.where(ri, si * t[0][k] + ci * t[1][k], t[1][k]) for k in (0, 1)]]
+    rj, cj, sj = (f == 1)[None, :], c[None, :], s[None, :]
+    t = [[np.where(rj, cj * t[r][0] - sj * t[r][1], t[r][0]),
+          np.where(rj, sj * t[r][0] + cj * t[r][1], t[r][1])] for r in (0, 1)]
+    diag = np.eye(len(f), dtype=bool) & (f >= 0)[:, None]
+    t[0][1] = np.where(diag, dt(0), t[0][1])
+    t[1][0] = np.where(diag, dt(0), t[1][0])
+    for r in (0, 1):
+        for k in (0, 1):
+            b[rows[r], cols[k]] = t[r][k]
+    return b[:-1, :-1]
+
+
+def _pair_block(kind, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "degenerate":              # eigenvalues in runs of 4
+        qm, _ = np.linalg.qr(rng.standard_normal((w, w)))
+        a = (qm * np.repeat(rng.standard_normal(-(-w // 4)), 4)[:w]) @ qm.T
+        a = (a + a.T) / 2
+    else:
+        a = rng.standard_normal((w, w))
+        a = a + a.T
+    return a.astype(dtype)
+
+
+@pytest.mark.parametrize("kind", ["random", "skips", "degenerate"])
+@pytest.mark.parametrize("w", [16, 17])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pair_set_as_tiles_matches_rows_then_columns(dtype, w, kind):
+    # kernel D2's 2 x 2 tiles (row rotation, then column rotation, in the
+    # tile) give the plain version's rows-then-columns step bit for bit,
+    # for every set of a sweep: odd w has a bye in every set; "skips"
+    # zeroes a_pq of every other pair, so diagonal tiles hold skipped
+    # pairs beside rotated ones
+    a = _pair_block(kind, w, dtype, seed=w)
+    for r in range(w - 1 + (w & 1)):
+        if kind == "skips":
+            p, q = _set_params(a, r)[:2]
+            a[p[::2], np.minimum(q[::2], w - 1)] = 0
+            a[np.minimum(q[::2], w - 1), p[::2]] = 0
+        p, q, c, s, f = _set_params(a, r)
+        if kind == "skips":
+            assert (f == 0).any() and (f == 1).any()
+        got = _tiles(a, *_xy(r, w), c, s, f)
+        want = _rows_then_columns(a, p, q, c, s, f)
+        assert got.dtype == a.dtype and np.array_equal(got, want), r
+        a = want
+
+
+def _pair_eigh_tiles(a):
+    """Kernel D2 for one block in numpy: the sets by tiles, V^T's rows by
+    the same rotations, the stop rule and the counts of the kernel."""
+    w = a.shape[0]
+    vt = np.eye(w, dtype=a.dtype)
+    sweeps = rotations = 0
+    while sweeps < jacobi.MAX_SWEEPS:
+        sweeps += 1
+        in_sweep = 0
+        for r in range(w - 1 + (w & 1)):
+            x, y = _xy(r, w)
+            c, s, f = _set_params(a, r)[2:]
+            a = _tiles(a, x, y, c, s, f)
+            m = f == 1                  # V^T's rows x, y, the signed sine
+            x, y, c, s = x[m], y[m], c[m], np.where(x < y, s, -s)[m]
+            vx, vy = vt[x, :].copy(), vt[y, :].copy()
+            vt[x, :] = c[:, None] * vx - s[:, None] * vy
+            vt[y, :] = s[:, None] * vx + c[:, None] * vy
+            in_sweep += int(m.sum())
+        rotations += in_sweep
+        if in_sweep == 0:
+            break
+    return np.diagonal(a).copy(), vt.T, sweeps, rotations
+
+
+@pytest.mark.parametrize("w", [8, 9])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pair_eigh_by_tiles_matches_plain(dtype, w):
+    # the whole kernel's order (parameters, tiles, V^T a set behind) on a
+    # random, a degenerate and a diagonal block equals pair_eigh_plain
+    blocks = np.stack([_pair_block("random", w, dtype, 1),
+                       _pair_block("degenerate", w, dtype, 2),
+                       np.diag(np.arange(w, dtype=dtype))])
+    got = jacobi.pair_eigh_plain(torch.tensor(blocks))
+    for b, blk in enumerate(blocks):
+        vals, vecs, sweeps, rotations = _pair_eigh_tiles(blk.copy())
+        assert np.array_equal(vals, got.values[b].numpy())
+        assert np.array_equal(vecs, got.vectors[b].numpy())
+        assert sweeps == got.sweeps[b] and rotations == got.rotations[b]
+    assert got.rotations[2] == 0 and got.rotations[0] > 0
+
+
 def test_pair_eigh_takes_the_plain_version_on_the_cpu():
     a = torch.tensor(_sym(8, 2)).expand(3, 8, 8).contiguous()
     before = jacobi.LAUNCHES
