@@ -99,6 +99,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     prints the time D2's first design took on the same operands
     (``FIRST_DESIGN_MS``).
 
+13. The process grid ("mesh"): four ranks on the one card as a 2 x 2
+    grid, gloo on CUDA tensors (``multihost.init_distributed(...,
+    backend="gloo")``, ``solve(..., mesh=grid)``, spawned here), solve
+    ``-s scalapack`` on phase 10's float64 matrix (seed 7) and ``-s
+    scalapack_select -n 500`` on phase 4's (seed 1) at n = 4096, float64;
+    eigenvalues within 1e-10 ||A||_2 of the single-device runs of those
+    phases, the grid verifier's residual and orthogonality to phase 4's
+    bars; B1 and B2 (select) and D1 (scalapack) must have been launched on
+    every rank, and each rank's B1 eigenvalues and first B2 solve on the
+    selecting core's (d, e) must equal the single-device kernels' on the
+    same (d, e) bit for bit.  Each rank prints its stage seconds, peak
+    device memory, and its collectives' count and host seconds.  Then
+    NCCL on every card of the machine: on one card a one-rank NCCL world
+    solves ``scalapack_select -n 500`` through ``solve(...,
+    mesh=single_device_mesh())`` (a 1 x 1 grid); on two or more the CLI
+    runs on ``EK_NUM_PROCESSES`` = the cards and ``--mesh`` from
+    ``layout_grid``, its eigenvalues.dat held against phase 4's.  Every
+    rank has a join timeout: a rank that fails or hangs fails the phase.
+
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
 path do not count.  The second-to-last line is a JSON object with one
@@ -135,6 +154,7 @@ N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
 N_DC = 4096                    # full spectrum through divide and conquer
 N_GEN, K_GEN = 4096, 500       # generalized problems
 N_X, K_X = 4096, 500           # the extra cores and --dtype mixed
+MESH_TIMEOUT_S = 600           # a grid run's ranks must end within this
 # D2's first design (one CTA a block: rows, then columns and V^T; kept in
 # tools/pair_jacobi_rowcol.cu) on the operands of phase 12's comparisons,
 # ms by CUDA events, from this script's run on an NVIDIA H100 80GB HBM3,
@@ -1486,6 +1506,277 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
     return launches, out
 
 
+def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
+    """One rank of a grid run (phase 13): join the group, make the grid
+    on ``device``, and solve each (tag, solver, k, n, seed) of ``jobs`` on
+    its ELSES-style matrix; write what the phase reads."""
+    import numpy as np
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    sys.path.insert(0, ROOT)
+    from eigenkernel_tpu_torch.core.config import set_matmul_precision_highest
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+    from eigenkernel_tpu_torch.obs.events import EventLog
+    from eigenkernel_tpu_torch.ops import tridiag, tridiag_solve
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+    from eigenkernel_tpu_torch.parallel import multihost
+    from eigenkernel_tpu_torch.solvers.api import solve
+    from eigenkernel_tpu_torch.verify import (eval_orthogonality,
+                                              eval_residual_norm)
+
+    set_matmul_precision_highest()
+    multihost.init_distributed(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        grid = pm.single_device_mesh(device) if shape == (1, 1) \
+            else pm.make_mesh(shape, device)
+        for tag, solver, k, n, seed in jobs:
+            dm = pm.distribute_coo(SparseMatrix(n, *elses_like(n, seed)),
+                                   grid, torch.float64)
+            log = EventLog(stream=False)
+            grid.stats = pm.CollectiveStats()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with capture(tridiag, "tridiag_eigh", limit=1) as tri, \
+                    capture(tridiag_solve, "tridiag_solve", limit=1) as b2:
+                t0 = time.time()
+                pairs = solve(dm, solver=solver, n_vec=k, mesh=grid,
+                              log=log)
+                pm.barrier(grid)
+                seconds = time.time() - t0
+            launches = read_launches()
+            stats = (grid.stats.calls, grid.stats.seconds, grid.stats.bytes)
+            peak = torch.cuda.max_memory_allocated() \
+                if device.type == "cuda" else 0
+            kk = pairs.values.shape[0]
+            _, _, resid = eval_residual_norm(dm, pairs, kk)
+            orth = eval_orthogonality(pairs, 1, kk)
+            out = {"values": pairs.values.cpu().numpy(),
+                   "stages": np.array(json.dumps(
+                       {e["name"]: e["val"] for e in log.events()})),
+                   "launches": np.array(json.dumps(launches)),
+                   "stats": np.array(stats, dtype=np.float64),
+                   "peak": np.array(peak), "seconds": np.array(seconds),
+                   "checks": np.array([resid, orth])}
+            if solver == "scalapack_select":
+                # the selecting core's (d, e), its eigenvalues (the
+                # gathered B1 results) and its first B2 solve, made again
+                # outside the counted run
+                d, e = tri[0][:2]
+                out.update(d=d.cpu().numpy(), e=e.cpu().numpy(),
+                           lam=pairs.values.cpu().numpy(),
+                           first=tridiag_solve.tridiag_solve(*b2[0])
+                           .cpu().numpy(),
+                           lanes=np.array(pm.share(k, grid.size, grid.rank)))
+            np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"), **out)
+            del dm, pairs
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_grid(world, backend, shape, devices, jobs, out_dir):
+    """Spawn ``world`` ranks of :func:`mesh_rank`, rank r on device
+    ``devices[r]``; fail if one fails or outlives MESH_TIMEOUT_S."""
+    import multiprocessing as mp
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, port, backend, shape, devices[r],
+                               jobs, out_dir)) for r in range(world)]
+    t0 = time.time()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(0.0, t0 + MESH_TIMEOUT_S - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"{backend} {shape[0]} x {shape[1]} grid: every rank "
+                        f"ended within {MESH_TIMEOUT_S} s (hung: {hung})")
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"{backend} {shape[0]} x {shape[1]} grid: every rank exits 0 "
+              f"({codes})")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    print(f"{backend} {shape[0]} x {shape[1]} grid on {devices}: "
+          f"{time.time() - t0:.1f} s with the ranks' start")
+
+
+def report_grid(tag, world, out_dir, ref_values, norm2, want):
+    """Print each rank's stage seconds, peak memory and collectives; hold
+    the run's eigenvalues to the single-device ones and its checks to the
+    float64 bars; require the kernels ``want`` launched on every rank."""
+    import numpy as np
+
+    res = [dict(np.load(os.path.join(out_dir, f"{tag}_rank{r}.npz")))
+           for r in range(world)]
+    for r, out in enumerate(res):
+        stages = json.loads(str(out["stages"]))
+        calls, secs, nbytes = out["stats"]
+        print(f"  {tag} rank {r}: solve {float(out['seconds']):.3f} s, peak "
+              f"{float(out['peak']) / 2**30:.2f} GiB, {int(calls)} "
+              f"collectives, {secs:.3f} s in them, {nbytes / 2**20:.1f} MiB; "
+              f"launches {json.loads(str(out['launches']))}")
+        print("    " + ", ".join(f"{name} {val:.6f}" for name, val in
+                                 stages.items() if name.startswith("sep:")))
+        launched = json.loads(str(out["launches"]))
+        check(all(launched[key] > 0 for key in want),
+              f"{tag} rank {r} launched {', '.join(want)}")
+    w = res[0]["values"]
+    err = float(np.abs(w - ref_values[:w.shape[0]]).max())
+    check(err <= 1e-10 * norm2, f"{tag}: |eig - single device| {err:.3e} <= "
+                                f"1e-10 * ||A||_2 ({norm2:.4g})")
+    resid, orth = res[0]["checks"]
+    check(resid <= 1e-12, f"{tag}: resid max {resid:.3e} <= 1e-12")
+    check(orth <= 1e-10, f"{tag}: orthogonality {orth:.3e} <= 1e-10")
+    return res
+
+
+def phase_mesh(dev, tmp):
+    """Phase 13: the one-stage core on a process grid: 2 x 2 gloo ranks
+    on this card, then NCCL on every card; against the single-device
+    float64 runs of phases 10 and 4 (their eigenvalues.dat in ``tmp``)."""
+    import numpy as np
+
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+
+    jobs = [("scalapack", "scalapack", None, N_DC, 7),
+            ("select", "scalapack_select", K_MAIN, N_MAIN, 1)]
+    ref, norm2 = {}, {}
+    for (tag, _, _, n, seed), run in zip(jobs, ("dc_float64", "main_float64")):
+        ref[tag] = np.loadtxt(os.path.join(tmp, run, "eigenvalues.dat"),
+                              ndmin=2)[:, 1]
+        mat = SparseMatrix(n, *elses_like(n, seed))
+        norm2[tag] = float(np.abs(reference_eigvalsh(mat, dev)).max())
+    out_dir = os.path.join(tmp, "mesh")
+    os.makedirs(out_dir)
+    out = {"gloo_2x2": mesh_one_card(dev, jobs, out_dir, ref, norm2)}
+    t0 = time.time()
+    grid = mesh_every_card(jobs, out_dir, tmp, ref, norm2)
+    out["nccl"] = {"grid": grid, "seconds": time.time() - t0}
+    return out
+
+
+def mesh_one_card(dev, jobs, out_dir, ref, norm2):
+    """Four gloo ranks on ``dev`` as a 2 x 2 grid (phase 13)."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.ops import tridiag, tridiag_solve
+
+    run_grid(4, "gloo", (2, 2), [str(dev)] * 4, jobs, out_dir)
+    out = {}
+    for tag, want in (("scalapack", ("deflate",)),
+                      ("select", ("sturm", "solve"))):
+        res = report_grid(tag, 4, out_dir, ref[tag], norm2[tag], want)
+        out[tag] = [
+            {"launches": json.loads(str(r["launches"])),
+             "stages": json.loads(str(r["stages"])),
+             "seconds": float(r["seconds"]),
+             "peak_gib": float(r["peak"]) / 2**30,
+             "collectives": int(r["stats"][0]),
+             "collective_s": float(r["stats"][1])} for r in res]
+    # B1 and B2 on every rank against the single-device kernels on the
+    # same (d, e): eigenvalues and the first shifted solve's lanes
+    sel = [dict(np.load(os.path.join(out_dir, f"select_rank{r}.npz")))
+           for r in range(4)]
+    d = torch.tensor(sel[0]["d"], device=dev)
+    e = torch.tensor(sel[0]["e"], device=dev)
+    with capture(tridiag_solve, "tridiag_solve", limit=1) as calls:
+        lam, _ = tridiag.tridiag_eigh(d, e, K_MAIN)
+    first = tridiag_solve.tridiag_solve(*calls[0]).cpu().numpy()
+    lam = lam.cpu().numpy()
+    for r, res in enumerate(sel):
+        j0, j1 = res["lanes"]
+        check(np.array_equal(res["d"], sel[0]["d"])
+              and np.array_equal(res["e"], sel[0]["e"]),
+              f"rank {r}: the selecting core's (d, e) equal rank 0's")
+        check(np.array_equal(res["lam"], lam),
+              f"rank {r}: B1 eigenvalues == one device's, bit for bit")
+        check(np.array_equal(res["first"], first[:, j0:j1]),
+              f"rank {r}: first B2 solve, lanes {j0}-{j1 - 1} == one "
+              f"device's, bit for bit")
+    return out
+
+
+def mesh_every_card(jobs, out_dir, tmp, ref, norm2):
+    """NCCL on every card of the machine (phase 13): a one-rank 1 x 1 grid
+    through ``solve`` on one card, else the CLI on one process a card;
+    returns the grid's shape."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    cards = torch.cuda.device_count()
+    shape = pm.layout_grid(cards)
+    t0 = time.time()
+    if cards == 1:
+        print("NCCL on the one card: a 1 x 1 grid "
+              "(solve(..., mesh=single_device_mesh()))")
+        run_grid(1, "nccl", (1, 1), ["cuda:0"], jobs[1:], out_dir)
+        report_grid("select", 1, out_dir, ref["select"], norm2["select"],
+                    ("sturm", "solve"))
+    else:
+        work = os.path.join(tmp, "mesh_cli")
+        os.makedirs(work)
+        env_ = dict(os.environ, EK_NUM_PROCESSES=str(cards),
+                    PYTHONPATH=ROOT, EK_COORDINATOR=f"127.0.0.1:{free_port()}")
+        argv = [sys.executable, "-m", "eigenkernel_tpu_torch", "--mesh",
+                f"{shape[0]},{shape[1]}", "-s", "scalapack_select", "-n",
+                str(K_MAIN), "-c", str(K_MAIN), "-t", f"1,{K_MAIN}",
+                os.path.join(tmp, f"A{N_MAIN}_1.mtx")]
+        procs = [subprocess.Popen(argv, cwd=work,
+                                  env=dict(env_, EK_PROCESS_ID=str(i)),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for i in range(cards)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(outs[0])
+        check(all(p.returncode == 0 for p in procs),
+              f"the CLI on {cards} processes, --mesh {shape[0]},{shape[1]}, "
+              f"exits 0 ({[p.returncode for p in procs]})")
+        with open(os.path.join(work, "log.json")) as f:
+            events = json.load(f)["events"]
+        print("  stage table (process 0): " + ", ".join(
+            f"{e_['name']} {e_['val']:.6f}" for e_ in events
+            if e_["name"].startswith(("sep:", "main:eigen_solver"))))
+        ev = np.loadtxt(os.path.join(work, "eigenvalues.dat"), ndmin=2)
+        err = float(np.abs(ev[:, 1] - ref["select"]).max())
+        check(ev.shape == (K_MAIN, 2) and err <= 1e-10 * norm2["select"],
+              f"nccl {cards} cards: |eig - single device| {err:.3e} <= "
+              f"1e-10 * ||A||_2")
+        resid = _number(outs[0], "residual norm (max):")
+        orth = _number(outs[0], "orthogonality criterion:")
+        check(resid <= 1e-12 and orth <= 1e-10,
+              f"nccl {cards} cards: resid {resid:.3e} <= 1e-12, "
+              f"orthogonality {orth:.3e} <= 1e-10")
+    print(f"NCCL on {cards} card(s), a {shape[0]} x {shape[1]} grid: "
+          f"{time.time() - t0:.1f} s")
+    return f"{shape[0]} x {shape[1]}"
+
+
 def main() -> int:
     import torch
 
@@ -1559,9 +1850,17 @@ def main() -> int:
             dev, tmp, chains, gen_pair,
             dc_out["stages"]["scalapack float64"]["main:eigen_solver"])
         print(f"extra cores and --dtype mixed: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        mesh_out = phase_mesh(dev, tmp)
+        print(f"process grid: {time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
+
+    # the launches of each rank of the 2 x 2 grid's paths (phase 13)
+    by_rank = {key: [r["launches"][key] for r in mesh_out["gloo_2x2"][tag]]
+               for key, tag in (("sturm", "select"), ("solve", "select"),
+                                ("deflate", "scalapack"))}
 
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
     # n = 4096, k = 500 (and on the n = 16384 path's operands under
@@ -1620,6 +1919,8 @@ def main() -> int:
                         "path_checks": path_checks.get(key, [])
                         + (path_checks["wf_bt_phases"] if key == "wf_bt"
                            else [])})
+        if key in by_rank:
+            entries[-1]["mesh_launches_by_rank"] = by_rank[key]
     # D1: the six levels of one float64 tridiag_dc at n = 4096 on the
     # scalapack path's operands; not a TPU kernel (it replaces the
     # deflation lax.scans of the JAX function)
@@ -1637,7 +1938,8 @@ def main() -> int:
                     "path_checks": [dc_out["profile"],
                                     dc_out["profile_f32"],
                                     {"launches_generalized":
-                                     launches_gen["deflate"]}]})
+                                     launches_gen["deflate"]}],
+                    "mesh_launches_by_rank": by_rank["deflate"]})
     # D2: the float64 jacobi path's first-round pair blocks (dense, the
     # most sweeps); not a TPU kernel (it replaces the library eigh of the
     # pair blocks in the JAX function)

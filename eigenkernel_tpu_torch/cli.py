@@ -8,15 +8,28 @@ lines, output files and event names:
   device -> solve -> write eigenvalues.dat -> optional eigenvector files ->
   ipratios.dat -> optional residual / orthogonality checks -> log.json
 
-One process on one device; a second matrix file makes a generalized
-problem (B SPD), whose checks and ipratios use the B metric.  Several
-processes (``EK_NUM_PROCESSES``), ``--mesh`` and ``--profile`` are not
-ported yet and print ``[Error] ...``; so does ``--platform cuda`` (the
-default) on a machine without a CUDA device: nothing falls back to the CPU.
+A second matrix file makes a generalized problem (B SPD), whose checks
+and ipratios use the B metric.  ``--platform cuda`` (the default) on a
+machine without a CUDA device prints ``[Error] ...``: nothing falls back
+to the CPU.
+
+Several processes (JAX ``cli.py:82-300``): ``EK_NUM_PROCESSES``,
+``EK_COORDINATOR`` (``host:port``) and ``EK_PROCESS_ID`` start each
+process in one ``torch.distributed`` group (NCCL on the card, a card
+each; gloo with ``--platform cpu``), on an R x C grid (``--mesh R,C``,
+default the near-square layout).  Process 0 probes the header and reads
+the COO triplets, broadcasts them, and each process densifies its own
+block; eigenvalues.dat, ipratios.dat and log.json come from process 0,
+the eigenvector files from every process in turn.  On a grid only the
+one-stage core runs (``scalapack``, ``scalapack_select``, ``lapack``
+replicated, ``auto``); every other name prints ``[Error] ...``.
+``--profile <dir>`` traces the solve with ``torch.profiler`` into
+``<dir>/trace_rank<r>.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -54,16 +67,26 @@ def _print_select_report(values: np.ndarray, rel_tol: float = 1e-8) -> None:
               f"orthogonality enforced by shift separation + CholeskyQR2")
 
 
-def _unsupported(arg) -> str | None:
-    """Why this run cannot go ahead in this package, or None."""
-    if os.environ.get("EK_NUM_PROCESSES", "") not in ("", "0", "1"):
-        return ("multi-process runs (EK_NUM_PROCESSES) are not ported yet "
-                "(ROADMAP slice 7)")
-    if arg.mesh_shape is not None:
-        return "--mesh: multi-device runs are not ported yet (ROADMAP slice 7)"
-    if arg.profile_dir:
-        return "--profile is not ported yet"
+def _unsupported(arg, on_grid: bool) -> str | None:
+    """Why this run cannot go ahead in this package yet, or None."""
+    from eigenkernel_tpu_torch.solvers.api import mesh_refusal
+    from eigenkernel_tpu_torch.solvers.registry import AUTO_NAMES
+
+    if on_grid and arg.solver_type not in AUTO_NAMES:
+        return mesh_refusal(arg.solver_type, arg.dtype == "mixed")
     return None
+
+
+def _profiler(arg, device):
+    """torch.profiler around the solve with ``--profile``, else nothing."""
+    import torch
+
+    if not arg.profile_dir:
+        return contextlib.nullcontext()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def main(argv=None) -> int:
@@ -71,25 +94,19 @@ def main(argv=None) -> int:
     t_start = time.time()
 
     import torch
+    import torch.distributed as dist
 
     from eigenkernel_tpu_torch.core import config as cfg
-    from eigenkernel_tpu_torch.io import matrix_market as mm
-    from eigenkernel_tpu_torch.io import outputs
-    from eigenkernel_tpu_torch.obs.events import EventLog
-    from eigenkernel_tpu_torch.solvers.api import solve
-    from eigenkernel_tpu_torch.solvers.registry import (
-        AUTO_NAMES, UnknownSolverError, get_spec, resolve_auto)
-    from eigenkernel_tpu_torch.verify import (
-        eval_orthogonality, eval_residual_norm, get_ipratios)
-
-    log = EventLog(stream=True, epoch=t_start)
+    from eigenkernel_tpu_torch.parallel import multihost as mh
 
     try:
         arg = cfg.parse_args(argv)
     except cfg.ArgumentError as exc:
         print(f"[Error] {exc}", file=sys.stderr)
         return 1
-    why = _unsupported(arg)
+    n_proc = int(os.environ.get("EK_NUM_PROCESSES", "0") or 0)
+    on_grid = n_proc > 1 or arg.mesh_shape not in (None, (1, 1))
+    why = _unsupported(arg, on_grid)
     if why is not None:
         print(f"[Error] {why}", file=sys.stderr)
         return 1
@@ -97,30 +114,93 @@ def main(argv=None) -> int:
         print("[Error] --platform cuda: no CUDA device is available "
               "(use --platform cpu to run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(arg.platform)
+    if arg.platform == "cuda" and n_proc > torch.cuda.device_count():
+        print(f"[Error] {n_proc} processes would share "
+              f"{torch.cuda.device_count()} CUDA device(s): one process a "
+              f"card", file=sys.stderr)
+        return 1
+    pid = os.environ.get("EK_PROCESS_ID")
+    joined = not dist.is_initialized()
+    try:
+        mh.init_distributed(os.environ.get("EK_COORDINATOR"), n_proc or None,
+                            None if pid is None else int(pid),
+                            "gloo" if arg.platform == "cpu" else "nccl")
+    except ValueError as exc:
+        print(f"[Error] {exc}", file=sys.stderr)
+        return 1
+    joined = joined and dist.is_initialized()
+    try:
+        return _main(arg, argv, t_start)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(arg, argv, t_start) -> int:
+    import torch
+
+    from eigenkernel_tpu_torch.core import config as cfg
+    from eigenkernel_tpu_torch.io import matrix_market as mm
+    from eigenkernel_tpu_torch.io import outputs
+    from eigenkernel_tpu_torch.obs.events import EventLog
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+    from eigenkernel_tpu_torch.parallel import multihost as mh
+    from eigenkernel_tpu_torch.solvers.api import mesh_refusal, solve
+    from eigenkernel_tpu_torch.solvers.registry import (
+        AUTO_NAMES, UnknownSolverError, get_spec, resolve_auto)
+    from eigenkernel_tpu_torch.verify import (
+        eval_orthogonality, eval_residual_norm, get_ipratios)
+
+    n_proc, rank = mh.process_count(), mh.process_index()
+    master = rank == 0
+    log = EventLog(stream=master, epoch=t_start)
+    if arg.mesh_shape is not None and \
+            arg.mesh_shape[0] * arg.mesh_shape[1] != n_proc:
+        r, c = arg.mesh_shape
+        print(f"[Error] --mesh {r},{c} needs {r * c} processes "
+              f"(EK_NUM_PROCESSES, EK_COORDINATOR, EK_PROCESS_ID); this "
+              f"run has {n_proc}", file=sys.stderr)
+        return 1
+    if arg.platform == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
     cfg.set_matmul_precision_highest()
 
-    # --- header probe (wrap_mminfo analog)
+    # --- header probe on process 0 + info broadcast (wrap_mminfo +
+    # bcast_matrix_info analog)
     t0 = time.time()
-    try:
-        arg.matrix_A_info = mm.read_header(arg.matrix_A_filename)
-        if arg.is_generalized_problem:
-            arg.matrix_B_info = mm.read_header(arg.matrix_B_filename)
-    except (OSError, mm.MatrixMarketError) as exc:
-        print(f"[Error] mminfo failed: {exc}", file=sys.stderr)
+    info_a = info_b = err = None
+    if master:
+        try:
+            info_a = mm.read_header(arg.matrix_A_filename)
+            if arg.is_generalized_problem:
+                info_b = mm.read_header(arg.matrix_B_filename)
+        except (OSError, mm.MatrixMarketError) as exc:
+            err = exc
+    arg.matrix_A_info = mh.bcast_matrix_info(info_a)
+    if arg.is_generalized_problem:
+        arg.matrix_B_info = mh.bcast_matrix_info(info_b)
+    if arg.matrix_A_info is None or \
+            (arg.is_generalized_problem and arg.matrix_B_info is None):
+        if master:
+            print(f"[Error] mminfo failed: {err}", file=sys.stderr)
         return 1
     cfg.finalize_args(arg)
 
     device_name = torch.cuda.get_device_name(device) \
         if device.type == "cuda" else "cpu"
-    print("---------- Eigen Test start ----------")
-    print("----- Configurations -----")
-    cfg.print_command_argument(arg)
-    mem = cfg.required_memory(arg)
-    if mem > 0:
-        print(f"approximate required memory per device (Mbytes): "
-              f"{mem / 2**20:10.1f}")
-    print(f"devices: 1 ({device.type}: {device_name}), processes: 1")
+    if master:
+        print("---------- Eigen Test start ----------")
+        print("----- Configurations -----")
+        cfg.print_command_argument(arg)
+        mem = cfg.required_memory(arg, n_proc)
+        if mem > 0:
+            print(f"approximate required memory per device (Mbytes): "
+                  f"{mem / 2**20:10.1f}")
+        print(f"devices: {n_proc} ({device.type}: {device_name}), "
+              f"processes: {n_proc}")
     log.add_event("main:read_command_argument", time.time() - t0)
 
     if arg.solver_type in AUTO_NAMES:
@@ -128,12 +208,13 @@ def main(argv=None) -> int:
         try:
             arg.solver_type = resolve_auto(
                 arg.solver_type, dim, generalized=arg.is_generalized_problem,
-                selecting=arg.n_vec != dim, on_mesh=False,
+                selecting=arg.n_vec != dim, on_mesh=n_proc > 1,
                 backend=device.type)
         except UnknownSolverError as exc:
             print(f"[Error] {exc}", file=sys.stderr)
             return 1
-        print(f"auto solver resolved: {arg.solver_type}")
+        if master:
+            print(f"auto solver resolved: {arg.solver_type}")
 
     try:
         cfg.validate_args(arg)
@@ -141,47 +222,78 @@ def main(argv=None) -> int:
         print(f"[Error] {exc}", file=sys.stderr)
         return 1
     spec = get_spec(arg.solver_type)
+    why = mesh_refusal(arg.solver_type, arg.dtype == "mixed") \
+        if n_proc > 1 else None
+    if why is not None:
+        print(f"[Error] {why}", file=sys.stderr)
+        return 1
 
-    # --- read the matrix (read_matrix_file analog)
+    # --- read the matrices on process 0 (read_matrix_file analog); COO
+    # only, densified after the broadcast
     t0 = time.time()
-    try:
-        mat_a = mm.read_matrix(arg.matrix_A_filename, arg.matrix_A_info, log)
-        mat_b = mm.read_matrix(arg.matrix_B_filename, arg.matrix_B_info,
-                               log) if arg.is_generalized_problem else None
-    except (OSError, mm.MatrixMarketError) as exc:
-        print(f"[Error] read_matrix_file failed: {exc}", file=sys.stderr)
+    mat_a = mat_b = None
+    ok = True
+    if master:
+        try:
+            mat_a = mm.read_matrix(arg.matrix_A_filename, arg.matrix_A_info,
+                                   log)
+            if arg.is_generalized_problem:
+                mat_b = mm.read_matrix(arg.matrix_B_filename,
+                                       arg.matrix_B_info, log)
+        except (OSError, mm.MatrixMarketError) as exc:
+            ok = False
+            print(f"[Error] read_matrix_file failed: {exc}", file=sys.stderr)
+    if not mh.bcast_ok(ok):
         return 1
     log.add_event("main:read_matrix_files", time.time() - t0)
 
-    # --- densify and place on the device (bcast_sparse_matrix analog)
+    # --- grid, COO broadcast and densify: each process its own block
+    # (bcast_sparse_matrix analog)
     t0 = time.time()
     dtype = torch.float32 if arg.dtype == "float32" else torch.float64
-    a_mat = torch.from_numpy(mat_a.to_dense()).to(device=device, dtype=dtype)
-    b_mat = None if mat_b is None else \
-        torch.from_numpy(mat_b.to_dense()).to(device=device, dtype=dtype)
-    if arg.is_printing_grid_mapping:
-        print("Grid mapping (1 x 1):")
-        print(f"  (0, 0) -> {device} {device_name}")
+    grid = pm.make_mesh(arg.mesh_shape, device) if n_proc > 1 else None
+    mat_a = mh.bcast_coo(mat_a, arg.matrix_A_info.rows,
+                         arg.matrix_A_info.entries)
+    if grid is not None:
+        a_mat = pm.distribute_coo(mat_a, grid, dtype)
+        b_mat = None               # no generalized name runs on a grid
+    else:
+        a_mat = torch.from_numpy(mat_a.to_dense()).to(device=device,
+                                                      dtype=dtype)
+        b_mat = None if mat_b is None else \
+            torch.from_numpy(mat_b.to_dense()).to(device=device, dtype=dtype)
+    del mat_a, mat_b
+    if arg.is_printing_grid_mapping and master:
+        if grid is not None:
+            pm.print_grid_mapping(grid)
+        else:
+            print("Grid mapping (1 x 1):")
+            print(f"  (0, 0) -> {device} {device_name}")
     log.add_event("main:bcast_sparse_matrices", time.time() - t0)
 
     command = "eigenkernel_app " + " ".join(argv)
     block_used = arg.block_size or cfg.DEFAULT_BLOCK_SIZE
     if arg.is_dry_run:
-        print("\ndry run mode, exit")
-        outputs.write_log_json(arg.log_filename,
-                               cfg.settings_json(arg, command, block_used),
-                               log)
+        if master:
+            print("\ndry run mode, exit")
+            outputs.write_log_json(
+                arg.log_filename, cfg.settings_json(arg, command, block_used),
+                log)
         return 0
 
     # --- solve (eigen_solver analog)
-    print("\n----- Solver Call -----")
+    if master:
+        print("\n----- Solver Call -----")
     t0 = time.time()
     try:
-        pairs = solve(a_mat, b_mat, solver=arg.solver_type,
-                      n_vec=arg.n_vec if spec.selecting else None,
-                      block_size=arg.block_size, log=log,
-                      dtype="mixed" if arg.dtype == "mixed" else None,
-                      device=device)
+        with _profiler(arg, device) as prof:
+            pairs = solve(a_mat, b_mat, solver=arg.solver_type,
+                          n_vec=arg.n_vec if spec.selecting else None,
+                          block_size=arg.block_size, log=log,
+                          dtype="mixed" if arg.dtype == "mixed" else None,
+                          device=device, mesh=grid)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     except Exception as exc:
         # terminate() analog: dump accumulated events, then fail with a
         # coherent message
@@ -190,14 +302,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     log.add_event("main:eigen_solver", time.time() - t0)
+    if prof is not None:
+        os.makedirs(arg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(arg.profile_dir, f"trace_rank{rank}.json"))
 
     values_host = pairs.values.double().cpu().numpy()
-    if spec.selecting:
+    if spec.selecting and master:
         _print_select_report(values_host)
 
-    # --- outputs
+    # --- outputs (process 0, but the eigenvector files from every process)
     t0 = time.time()
-    outputs.write_eigenvalues(arg.output_filename, values_host)
+    if master:
+        outputs.write_eigenvalues(arg.output_filename, values_host)
     if arg.printed_vecs_ranges:
         outputs.print_eigenvectors(pairs, arg.eigenvector_dir,
                                    arg.printed_vecs_ranges,
@@ -205,32 +322,39 @@ def main(argv=None) -> int:
     log.add_event("main:print_eigenpairs", time.time() - t0)
 
     t0 = time.time()
-    outputs.write_ipratios(arg.ipratios_filename, get_ipratios(pairs, b_mat))
+    ipr = get_ipratios(pairs, b_mat)
+    if master:
+        outputs.write_ipratios(arg.ipratios_filename, ipr)
     log.add_event("main:compute_and_print_ipratios", time.time() - t0)
 
-    # --- checks
+    # --- checks (collective on a grid, process 0 prints)
     t0 = time.time()
     if arg.n_check_vec != 0:
-        print("\n----- Checker Call -----")
+        if master:
+            print("\n----- Checker Call -----")
         a_norm, rn_ave, rn_max = eval_residual_norm(a_mat, pairs,
                                                     arg.n_check_vec, b_mat)
-        print(f"A norm: {a_norm:15.8E}")
-        print(f"residual norm (average): {rn_ave:15.8E}")
-        print(f"residual norm (max):     {rn_max:15.8E}")
+        if master:
+            print(f"A norm: {a_norm:15.8E}")
+            print(f"residual norm (average): {rn_ave:15.8E}")
+            print(f"residual norm (max):     {rn_max:15.8E}")
     log.add_event("main:eval_residual_norm", time.time() - t0)
 
     t0 = time.time()
     if arg.ortho_check_index_start != 0:
         ortho = eval_orthogonality(pairs, arg.ortho_check_index_start,
                                    arg.ortho_check_index_end, b_mat)
-        print(f"orthogonality criterion: {ortho:15.8E}")
+        if master:
+            print(f"orthogonality criterion: {ortho:15.8E}")
     log.add_event("main:eval_orthogonality", time.time() - t0)
     log.add_event("main", time.time() - t_start)
 
-    outputs.write_log_json(arg.log_filename,
-                           cfg.settings_json(arg, command, block_used), log)
-    if arg.verbose_level > 0:
-        log.print_events()
+    if master:
+        outputs.write_log_json(arg.log_filename,
+                               cfg.settings_json(arg, command, block_used),
+                               log)
+        if arg.verbose_level > 0:
+            log.print_events()
     return 0
 
 

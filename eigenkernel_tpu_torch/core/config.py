@@ -254,9 +254,14 @@ def validate_args(arg: Args) -> None:
             "validate_args: Specified numbers with -t option are not valid")
 
 
-def required_memory(arg: Args) -> float:
-    """Approximate bytes on the device (command_argument.f90:318-335);
-    -1 for solvers the reference had no formula for."""
+def required_memory(arg: Args, n_dev: int = 1) -> float:
+    """Approximate bytes per device on ``n_dev`` devices
+    (command_argument.f90:318-335; JAX ``core/config.py:267``); -1 for
+    solvers the reference had no formula for.  On a process grid a rank
+    of ``scalapack`` / ``scalapack_select`` holds its block of A, its 1/P
+    of the reflectors and its columns of the eigenvectors, so its share
+    shrinks with ``n_dev`` as the formula's does; ``lapack`` runs
+    replicated and its formula has no ``n_dev``."""
     itemsize = 8 if arg.dtype == "float64" else 4
     nnz_a = arg.matrix_A_info.entries
     dim = float(arg.matrix_A_info.rows)
@@ -264,11 +269,11 @@ def required_memory(arg: Args) -> float:
     if st in ("lapack", "eigh"):
         return itemsize * (nnz_a + dim * dim)
     if st in ("scalapack", "scalapack_select"):
-        return itemsize * (nnz_a + dim * dim * 2.0)
+        return itemsize * (nnz_a + dim * dim * 2.0 / n_dev)
     if st in ("general_scalapack", "general_scalapack_select",
               "general_eigh"):
         nnz = nnz_a + arg.matrix_B_info.entries
-        return itemsize * (nnz + dim * dim * 3.0)
+        return itemsize * (nnz + dim * dim * 3.0 / n_dev)
     return -1.0
 
 

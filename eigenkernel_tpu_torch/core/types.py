@@ -61,12 +61,16 @@ class EigenPairs:
 
     ``values`` (n_vec,) and ``vectors`` (n, n_vec) are torch tensors on the
     solve's device.  ``n_vec`` may be smaller than the matrix dimension for
-    selecting solvers.
+    selecting solvers.  From a solve on a process grid (``grid``),
+    ``values`` is whole on every rank and ``vectors`` holds this rank's
+    columns, whole, at the places ``cols`` (int64) of ``values``.
     """
 
     values: Any
     vectors: Any
     meta: dict = field(default_factory=dict)
+    grid: Any = None
+    cols: Any = None
 
     @property
     def dim(self) -> int:

@@ -1,6 +1,6 @@
 """Output writers: eigenvalues.dat, ipratios.dat, eigenvector files, log.json.
 
-Counterpart of ``eigenkernel_tpu/io/outputs.py`` for one process:
+Counterpart of ``eigenkernel_tpu/io/outputs.py``:
 
 * ``write_eigenvalues`` / ``write_ipratios`` <- main.f90:111-143: one
   ``index value`` line per entry, 1-based, E26.16-style floats.
@@ -10,6 +10,10 @@ Counterpart of ``eigenkernel_tpu/io/outputs.py`` for one process:
   little-endian length marker, float64 payload, trailing marker.
 * ``write_log_json`` <- main.f90:185-190: ``{"setting": {...},
   "events": [{name, num_repeated, val}, ...]}``.
+
+Under several processes the caller writes eigenvalues.dat, ipratios.dat
+and log.json on process 0 only; ``print_eigenvectors`` is called on every
+process and each writes the files of the vectors it holds.
 """
 
 from __future__ import annotations
@@ -49,16 +53,28 @@ def print_eigenvectors(eigenpairs: EigenPairs, out_dir: str,
     """Write eigenvectors for 1-based index ranges, one file per vector.
 
     Only the requested columns are copied from the device, one range at a
-    time.
+    time.  From a grid solve (``eigenpairs.grid``, called on every rank)
+    each rank writes the files of the range's vectors it holds, all ranks
+    at once and nothing gathered: the owner-parallel writing of the JAX
+    package's ``outputs.py:62-110``, with the vectors' owners the ranks
+    that hold their columns.
     """
     os.makedirs(out_dir, exist_ok=True)
     n = eigenpairs.dim
     for lo, hi in ranges:
         if lo < 1:  # 1-based indices; j=0 would alias the last column
             raise ValueError(f"eigenvector index {lo} is not 1-based")
-        block = eigenpairs.vectors[:, lo - 1:hi].double().cpu().numpy()
-        for j in range(lo, hi + 1):
-            col = block[:, j - lo]
+        if eigenpairs.grid is None:
+            block = eigenpairs.vectors[:, lo - 1:hi]
+            js = range(lo, hi + 1)
+        else:
+            cols = eigenpairs.cols
+            mine = (cols >= lo - 1) & (cols < hi)
+            block = eigenpairs.vectors[:, mine]
+            js = (cols[mine] + 1).tolist()
+        block = block.double().cpu().numpy()
+        for c, j in enumerate(js):
+            col = block[:, c]
             path = os.path.join(out_dir, f"{j:08d}.dat")
             if binary:
                 payload = col.astype("<f8").tobytes()

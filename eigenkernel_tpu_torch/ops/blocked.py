@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from eigenkernel_tpu_torch.parallel import mesh as pm
+
 
 class NotPositiveDefiniteError(ValueError):
     pass
@@ -60,12 +62,33 @@ def symmetrize(a: torch.Tensor) -> torch.Tensor:
     return (a + a.T) * 0.5
 
 
-def gershgorin_sentinel(a: torch.Tensor) -> torch.Tensor:
+def gershgorin_sentinel(a, mesh=None) -> torch.Tensor:
     """Value strictly above the spectrum of symmetric ``a`` (Gershgorin
     bound + margin), the JAX package's padding-diagonal convention: padded
-    eigenpairs then sort strictly last."""
-    radius = a.abs().sum(dim=1)
-    diag = a.diagonal()
-    hi = (diag + radius).max()
-    lo = (diag - radius).min()
+    eigenpairs then sort strictly last.
+
+    With ``mesh``, ``a`` is a DistMatrix on it: the row sums and the
+    diagonal of this rank's rows are summed over its process row, the
+    bounds taken over the logical rows of the whole grid."""
+    if mesh is None:
+        radius = a.abs().sum(dim=1)
+        diag = a.diagonal()
+        hi = (diag + radius).max()
+        lo = (diag - radius).min()
+        return hi + 0.125 * torch.clamp(hi - lo, min=1.0) + 1.0
+    blk = a.local
+    nr, nc = blk.shape
+    rows = torch.arange(a.row0, a.row0 + nr, device=blk.device)
+    radius = pm.all_reduce(blk.abs().sum(dim=1), mesh, over="row")
+    at = rows - a.col0                 # each row's diagonal column here
+    here = (at >= 0) & (at < nc)
+    diag = torch.zeros_like(radius)
+    diag[here] = blk[here, at[here]]
+    pm.all_reduce(diag, mesh, over="row")
+    real = rows < a.n
+    ninf = torch.tensor(-torch.inf, dtype=blk.dtype, device=blk.device)
+    bounds = torch.stack([torch.where(real, diag + radius, ninf).max(),
+                          torch.where(real, radius - diag, ninf).max()])
+    pm.all_reduce(bounds, mesh, op="max")
+    hi, lo = bounds[0], -bounds[1]
     return hi + 0.125 * torch.clamp(hi - lo, min=1.0) + 1.0

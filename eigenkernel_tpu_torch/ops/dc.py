@@ -24,9 +24,24 @@ batched over the merges, in the kernel's arithmetic order.  Every other
 step is PyTorch, which on the card runs the O(K^2) secular solve and the
 products on cuBLAS.
 
-Left out: ``EK_DC_UNROLL`` (an XLA scan knob) and the mesh paths.  The
-secular solve materializes a few (nb, K, K) temporaries a level, 134 MB
-each in float64 at the top of n = 4096.
+On a process grid (``mesh=``, JAX ``dc.py:403-419``) d and e are whole on
+every rank and the leaves and lower levels run the same on each; a level
+of at most 4 merges whose K and K/2 lanes the ranks divide runs
+lane-sharded: each rank solves its share of the secular roots, forms its
+columns of the Gu-Eisenstat S (the weights' products over the lanes
+multiplied across the grid by one ``all_reduce``) and its columns of
+``q1 @ S_O``, ``q2 @ S_O``, so the (nb, K, K) temporaries are split
+P ways.  A sharded level below the top gathers only its eigenvalues for
+the next: its vectors stay this rank's lanes, the next level gathers
+their two coupling rows, and its ``q1 @ S_O`` is the sum over the ranks'
+lanes, each rank's share broadcast in turn, so no rank holds a level's
+whole Q above the last unsharded level (N x N / 8 at most).  The top
+level's columns stay on their ranks, in lane order, with their places in
+the ascending spectrum.  D1 runs on each rank on the whole inputs.
+
+Left out: ``EK_DC_UNROLL`` (an XLA scan knob).  The secular solve
+materializes a few (nb, K, K) temporaries a level, 134 MB each in
+float64 at the top of n = 4096 on one device.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import numpy as np
 import torch
 
 from eigenkernel_tpu_torch.ops import build
+from eigenkernel_tpu_torch.parallel import mesh as pm
 
 LAUNCHES = 0  # launches of D1 by deflate_scan (CPU tensors do not count)
 
@@ -202,19 +218,22 @@ def _launch(ds, us, alive, tol) -> Deflation:
                      up=carry_v[1], depths=idx[3])
 
 
-def _secular_newton(dc, uc, rho, m, iters: int):
+def _secular_newton(dc, uc, rho, m, iters: int, lanes=None):
     """All roots of ``1 + rho sum_i uc_i^2 / (dc_i - lam)`` of each merge.
 
     dc, uc (nb, K): compacted (active first, dc ascending); rho, m (nb,):
     the coupling and the count of active entries.  Lane j < m finds the
-    root between dc_j and the next pole; lanes j >= m are masked.  Returns
-    (anchor, mu, dd): root = anchor + mu with anchor the nearer of the two
-    bracketing poles, dd[b, i, j] = dc_i - anchor_j (exact pole gaps).
+    root between dc_j and the next pole; lanes j >= m are masked.
+    ``lanes`` = (lo, hi) solves lanes lo..hi-1 only.  Returns (anchor, mu,
+    dd) over the lanes: root = anchor + mu with anchor the nearer of the
+    two bracketing poles, dd[b, i, j] = dc_i - anchor_j (exact pole gaps).
     """
     nb, K = dc.shape
     dtype, dev = dc.dtype, dc.device
     tiny = torch.finfo(dtype).tiny
-    jm = torch.arange(K, device=dev)
+    j0, j1 = (0, K) if lanes is None else lanes
+    jm = torch.arange(j0, j1, device=dev)
+    dl = dc[:, j0:j1]                       # the lanes' own poles
     mm = m[:, None]
     act = jm[None, :] < mm
     rho_ = rho[:, None]
@@ -226,7 +245,7 @@ def _secular_newton(dc, uc, rho, m, iters: int):
     # last root
     d_next = torch.where(jm[None, :] + 1 < mm, d_nxt,
                          d_last + rho_ * usum2 + tiny)
-    delta = torch.clamp(d_next - dc, min=tiny)
+    delta = torch.clamp(d_next - dl, min=tiny)
     terms = u2[:, :, None]                  # (nb, K terms, 1)
     dead = terms == 0
 
@@ -239,12 +258,12 @@ def _secular_newton(dc, uc, rho, m, iters: int):
         fp = rho_ * (terms / den.mul_(den)).sum(dim=1)
         return f, fp
 
-    mid = dc + 0.5 * delta
+    mid = dl + 0.5 * delta
     fmid, _ = f_and_fp(dc[:, :, None] - mid[:, None, :], want_fp=False)
     last = jm[None, :] == mm - 1
     # anchor at the nearer pole; the last interval always anchors left
     right = (fmid < 0) & ~last
-    anchor = torch.where(right, d_next, dc)
+    anchor = torch.where(right, d_next, dl)
     dd = dc[:, :, None] - anchor[:, None, :]
     # solve in a = |mu|, the distance from the anchor: g(a) = +-f is
     # increasing in a (see the JAX module for the safeguards)
@@ -286,13 +305,24 @@ def _secular_newton(dc, uc, rho, m, iters: int):
     return anchor, mu, dd
 
 
-def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
+def _lanes(K: int, grid) -> tuple[int, int]:
+    """This rank's lanes of a K-lane merge (all K without a grid)."""
+    return (0, K) if grid is None else pm.share(K, grid.size, grid.rank)
+
+
+def _merge_one(w1, w2, q1, q2, e_mid, iters: int, grid=None,
+               q_shares=None):
     """Merge the solved halves of nb merges across their couplings.
 
-    w1, w2 (nb, K2): ascending eigenvalues of the (pre-adjusted) halves;
-    q1, q2 (nb, K2, K2): their eigenvectors; e_mid (nb,): the subdiagonal
-    entries joining them.  Returns (w, q) of the unions, w (nb, K)
-    ascending and q (nb, K, K) = blkdiag(q1, q2) S.
+    w1, w2 (nb, K2): eigenvalues of the (pre-adjusted) halves, in any
+    order; q1, q2 (nb, K2, K2): their eigenvectors; e_mid (nb,): the
+    subdiagonal entries joining them.  Returns (w, q) of the unions, w
+    (nb, K) ascending and q (nb, K, K) = blkdiag(q1, q2) S; with ``grid``
+    only this rank's lanes (:func:`_lanes`), unsorted: w (nb, KL), q (nb,
+    K, KL).  ``q_shares`` (nb, 2, K2, K2 / P), given with ``grid``, holds
+    q1 and q2 as this rank's lanes of the level below only (q1 and q2 its
+    views): the two coupling rows are gathered, and ``q1 @ S_O`` is summed
+    over the ranks' lanes, each rank's broadcast in turn.
     """
     nb, K2 = w1.shape
     K = 2 * K2
@@ -303,7 +333,12 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
     s_sign = torch.where(e_mid >= 0, 1.0, -1.0).to(dtype)
 
     d = torch.cat([w1, w2], dim=1)
-    u = torch.cat([q1[:, K2 - 1, :], s_sign[:, None] * q2[:, 0, :]], dim=1)
+    ends = torch.stack([q1[:, K2 - 1, :], q2[:, 0, :]], dim=1)
+    if q_shares is not None:
+        a, b = _lanes(K2, grid)
+        ends = pm.gather_slots(ends, (slice(None), slice(None), slice(a, b)),
+                               (nb, 2, K2), grid)
+    u = torch.cat([ends[:, 0], s_sign[:, None] * ends[:, 1]], dim=1)
     sortp = torch.argsort(d, dim=1, stable=True)
     ds = d.gather(1, sortp)
     us = u.gather(1, sortp)
@@ -331,26 +366,37 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
     dc = d2.gather(1, pi)
     uc = u2.gather(1, pi)
 
-    anchor, mu, dd = _secular_newton(dc, uc, rho, m, iters)
-    jm = torch.arange(K, device=dev)
-    act = jm[None, :] < m[:, None]
-    both_act = act[:, :, None] & act[:, None, :]
-    eye = torch.eye(K, dtype=torch.bool, device=dev)
+    j0, j1 = _lanes(K, grid)
+    KL = j1 - j0
+    anchor, mu, dd = _secular_newton(dc, uc, rho, m, iters,
+                                     None if grid is None else (j0, j1))
+    ji = torch.arange(K, device=dev)
+    jm = ji[j0:j1]
+    act_i = ji[None, :] < m[:, None]               # (nb, K) poles
+    act = jm[None, :] < m[:, None]                 # (nb, KL) lanes
+    both_act = act_i[:, :, None] & act[:, None, :]
+    eye = ji[:, None] == jm[None, :]
     valid = both_act & ~eye
 
     # Gu/Eisenstat weights: uhat_i^2 = prod_j (lam_j - dc_i) /
     # (rho prod_{j != i} (dc_j - dc_i)), paired j <-> j
     lam_m_d = mu[:, None, :] - dd                  # lam_j - dc_i
-    neg_gap = dc[:, None, :] - dc[:, :, None]      # dc_j - dc_i
+    neg_gap = dc[:, None, j0:j1] - dc[:, :, None]  # dc_j - dc_i
     ratio = torch.where(valid, lam_m_d / torch.where(valid, neg_gap, 1.0),
                         1.0)
     del neg_gap
-    prod = ratio.prod(dim=2)
-    del ratio
-    diag_term = lam_m_d.diagonal(dim1=1, dim2=2)
-    uhat2 = torch.where(act, diag_term * prod
-                        / torch.where(rho == 0, 1.0, rho)[:, None], 0.0)
-    del lam_m_d
+    rho_safe = torch.where(rho == 0, 1.0, rho)[:, None]
+    if grid is None:
+        prod = ratio.prod(dim=2)
+        diag_term = lam_m_d.diagonal(dim1=1, dim2=2)
+        uhat2 = torch.where(act_i, diag_term * prod / rho_safe, 0.0)
+    else:
+        # lane i holds the factor lam_i - dc_i; the lanes' partial
+        # products are multiplied across the grid
+        ratio = torch.where(eye & both_act, lam_m_d, ratio)
+        prod = pm.all_reduce(ratio.prod(dim=2), grid, op="prod")
+        uhat2 = torch.where(act_i, prod / rho_safe, 0.0)
+    del ratio, lam_m_d
     uhat = torch.sqrt(uhat2.clamp(min=0.0))
     uhat = torch.where(uc < 0, -uhat, uhat)
 
@@ -358,14 +404,14 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
     den = torch.where(both_act, dd - mu[:, None, :], 1.0)
     del dd
     s = torch.where(both_act, uhat[:, :, None] / den,
-                    eye.to(dtype).expand(nb, K, K))
+                    eye.to(dtype).expand(nb, K, KL))
     del den
     s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True)
-    lam_all = torch.where(act, anchor + mu, dc)
+    lam_all = torch.where(act, anchor + mu, dc[:, j0:j1])
 
     # un-compact rows (compacted -> sorted order), one junk row below
-    spad = torch.zeros((nb, K + 1, K), dtype=dtype, device=dev)
-    spad.scatter_(1, pi[:, :, None].expand(nb, K, K), s)
+    spad = torch.zeros((nb, K + 1, KL), dtype=dtype, device=dev)
+    spad.scatter_(1, pi[:, :, None].expand(nb, K, KL), s)
     del s
     # replay the type-2 rotations in reverse (G^T on row pairs), batched
     # by chain depth: the rotations of one depth touch disjoint rows.  One
@@ -374,8 +420,8 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
     maxd = int(df.depths.max())
     for depth in range(maxd, -1, -1):
         sel = df.depths == depth
-        i1 = torch.where(sel, df.rot_ip, K)[:, :, None].expand(nb, K, K)
-        i2 = torch.where(sel, df.rot_i, K)[:, :, None].expand(nb, K, K)
+        i1 = torch.where(sel, df.rot_ip, K)[:, :, None].expand(nb, K, KL)
+        i2 = torch.where(sel, df.rot_i, K)[:, :, None].expand(nb, K, KL)
         cb = torch.where(sel, df.rot_c, 1.0)[:, :, None]
         sb = torch.where(sel, df.rot_s, 0.0)[:, :, None]
         r1 = spad.gather(1, i1)
@@ -384,14 +430,24 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int):
         spad.scatter_(1, i2, -sb * r1 + cb * r2)
         del r1, r2
     # un-sort rows (sorted -> concatenated order)
-    s_o = torch.empty((nb, K, K), dtype=dtype, device=dev)
-    s_o.scatter_(1, sortp[:, :, None].expand(nb, K, K), spad[:, :K])
+    s_o = torch.empty((nb, K, KL), dtype=dtype, device=dev)
+    s_o.scatter_(1, sortp[:, :, None].expand(nb, K, KL), spad[:, :K])
     del spad
-    # sort the columns by eigenvalue
-    cperm = torch.argsort(lam_all, dim=1, stable=True)
-    w = lam_all.gather(1, cperm)
-    s_o = s_o.gather(2, cperm[:, None, :].expand(nb, K, K))
-    q = torch.cat([q1 @ s_o[:, :K2, :], q2 @ s_o[:, K2:, :]], dim=1)
+    if grid is None:
+        # sort the columns by eigenvalue
+        cperm = torch.argsort(lam_all, dim=1, stable=True)
+        w = lam_all.gather(1, cperm)
+        s_o = s_o.gather(2, cperm[:, None, :].expand(nb, K, K))
+    else:
+        w = lam_all          # a merge above re-sorts its poles anyway
+    if q_shares is None:
+        return w, torch.cat([q1 @ s_o[:, :K2, :], q2 @ s_o[:, K2:, :]], dim=1)
+    q = s_o.new_zeros((nb, K, KL))
+    shape = tuple(q_shares.shape)
+    for src, part in pm.rank_shares(q_shares, grid, [shape] * grid.size):
+        a, b = pm.share(K2, grid.size, src)
+        q[:, :K2] += part[:, 0] @ s_o[:, a:b]
+        q[:, K2:] += part[:, 1] @ s_o[:, K2 + a:K2 + b]
     return w, q
 
 
@@ -408,11 +464,13 @@ def _tree_shape(n: int, leaf_target: int = 64):
 
 
 def tridiag_dc(d: torch.Tensor, e: torch.Tensor,
-               iters: Optional[int] = None):
+               iters: Optional[int] = None, mesh=None):
     """All eigenpairs of the symmetric tridiagonal (d, e) by batched
     divide and conquer.  Returns (w, q): w (n,) ascending, q (n, n)
-    orthonormal columns.  ``iters`` safeguarded Newton steps a root:
-    ``EK_DC_ITERS``, else 60 in float64 and 30 in float32."""
+    orthonormal columns; with ``mesh`` (d and e the same on every rank) a
+    :class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`.
+    ``iters`` safeguarded Newton steps a root: ``EK_DC_ITERS``, else 60 in
+    float64 and 30 in float32."""
     n = d.shape[0]
     dtype, dev = d.dtype, d.device
     if iters is None:
@@ -455,13 +513,42 @@ def tridiag_dc(d: torch.Tensor, e: torch.Tensor,
     w, q = torch.linalg.eigh(t)
     del t
 
-    # bottom-up merges, all of a level at once
+    # bottom-up merges, all of a level at once; on a grid the top levels
+    # (at most 4 merges, lanes the ranks divide) lane-sharded, each
+    # rank's vectors its lanes from the first sharded level up
+    grid = None
     for lvl in range(1, levels + 1):
         K2 = base << (lvl - 1)
         nb = N // (2 * K2)
         w = w.reshape(nb, 2, K2)
-        q = q.reshape(nb, 2, K2, K2)
+        q = q.reshape(nb, 2, K2, -1)       # K2 columns, or K2 / P lanes
         mids = torch.arange(nb, device=dev) * (2 * K2) + K2
+        shares = q if grid is not None else None
+        # once a level is sharded, every level above it is (nb halves, K2
+        # doubles)
+        grid = mesh if mesh is not None and nb <= 4 \
+            and K2 % mesh.size == 0 else None
         w, q = _merge_one(w[:, 0], w[:, 1], q[:, 0], q[:, 1],
-                          e_full[mids - 1], iters)
-    return w.reshape(N)[:n], q.reshape(N, N)[:n, :n]
+                          e_full[mids - 1], iters, grid, shares)
+        del shares
+        if grid is not None and lvl < levels:
+            # the level above takes the merged eigenvalues whole, the
+            # vectors as this rank's lanes
+            j0, j1 = _lanes(2 * K2, grid)
+            w = pm.gather_slots(w, (slice(None), slice(j0, j1)),
+                                (nb, 2 * K2), grid)
+    if mesh is None:
+        return w.reshape(N)[:n], q.reshape(N, N)[:n, :n]
+    if grid is None:
+        return pm.contiguous_shares(w.reshape(N)[:n], q.reshape(N, N)[:n, :n],
+                                    mesh)
+    # the top merge's lanes: their places in the ascending spectrum
+    j0, j1 = _lanes(N, grid)
+    w_all = pm.gather_slots(w.reshape(-1), slice(j0, j1), (N,), grid)
+    order = torch.argsort(w_all, stable=True)
+    place = torch.empty_like(order)
+    place[order] = torch.arange(N, device=dev)
+    cols = place[j0:j1]
+    keep = cols < n
+    return pm.ColumnShares(w_all[order][:n], q.reshape(N, j1 - j0)[:n, keep],
+                           cols[keep])

@@ -19,20 +19,56 @@ cost.)
 identity ``H_s ... H_{s+g-1} = I - V T V^T``,
 ``T = inv(diag(1/tau) + striu(V^T V))``, so the back-transform is GEMMs plus
 one small triangular solve per group.
+
+On a process grid (``mesh=``, the matrix a :class:`DistMatrix` of plain
+2D blocks, ``parallel/mesh.py``) the same loop is ScaLAPACK's pdlatrd:
+each panel's columns are gathered whole onto every rank by one
+``all_reduce``, and each column's ``A22 v`` is the local block product,
+put in this rank's rows of a zeroed column and summed over the grid by
+one ``all_reduce``.  That one call is ScaLAPACK's reduction along the
+process row and gather along the process column fused: with gathers built
+from ``all_reduce``, the two would move this rank's nr rows and then the
+whole column, two calls a column, where the fused call moves the column
+once.  The panel's V and W, d, e and taus are formed identically on every
+rank, and the rank-2b trailing update is local to each block.  The
+reflectors are kept by WY group (:func:`wy_groups`), group i on rank
+i mod P only, so a rank holds 1/P of V; ``apply_q`` on a rank's own
+columns of z broadcasts each group from its rank in turn
+(:class:`GridReflectors`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from eigenkernel_tpu_torch.parallel import mesh as pm
 
 
 class TridiagResult(NamedTuple):
     d: torch.Tensor     # (n,)   diagonal of T
     e: torch.Tensor     # (n-1,) subdiagonal of T
     V: torch.Tensor     # (n, n) Householder vectors, column c = v_c (v[c+1]=1)
+    #                     (a GridReflectors on a process grid)
     taus: torch.Tensor  # (n,)   reflector coefficients (0 => identity)
+
+
+class GridReflectors(NamedTuple):
+    """V on a process grid: WY group i (columns ``groups[i]``) is held by
+    rank i mod P alone, as ``mine[i]`` = ``V[s:, s:s + w]``."""
+
+    groups: list        # [(s, w)] of :func:`wy_groups`
+    mine: dict          # group index -> this rank's (n - s, w) block
+
+
+def wy_groups(n: int, block: int) -> list:
+    """The (start, width) of the compact-WY groups of ``apply_wy``: panels
+    of ``block`` columns, ``512 // block`` of them a group (512 columns,
+    as the JAX package's default ``EK_ORMTR_GROUP``)."""
+    b = max(1, min(block, n))
+    gb = max(1, 512 // b) * b
+    return [(s, min(gb, n - s)) for s in range(0, n, gb)]
 
 
 def _householder(x: torch.Tensor, alpha: torch.Tensor):
@@ -57,9 +93,14 @@ def _householder(x: torch.Tensor, alpha: torch.Tensor):
     return head, tail, tau, beta
 
 
-def tridiagonalize(a: torch.Tensor, block: int = 64) -> TridiagResult:
+def tridiagonalize(a, block: int = 64,
+                   mesh: Optional[pm.ProcessGrid] = None) -> TridiagResult:
     """Reduce symmetric ``a`` to tridiagonal ``T = Q^T A Q`` (pdsytrd
-    analog).  ``a`` is not modified."""
+    analog).  ``a`` is not modified.  With ``mesh``, ``a`` is a
+    :class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix` on that grid
+    and the result, of its padded dimension, is whole on every rank."""
+    if mesh is not None:
+        return _tridiagonalize_grid(a, block, mesh)
     n = a.shape[0]
     dtype, dev = a.dtype, a.device
     b = max(1, min(block, n))
@@ -101,6 +142,84 @@ def tridiagonalize(a: torch.Tensor, block: int = 64) -> TridiagResult:
     return TridiagResult(d=d, e=e, V=V, taus=taus)
 
 
+def _tridiagonalize_grid(a: pm.DistMatrix, block: int,
+                         grid: pm.ProcessGrid) -> TridiagResult:
+    """pdlatrd on plain 2D blocks: the loop of :func:`tridiagonalize` in
+    global indices, with the trailing block read only through this rank's
+    block ``A[r0:r0+nr, c0:c0+nc]``."""
+    if a.grid is not grid:
+        raise ValueError("tridiagonalize: the matrix is on another grid")
+    A = a.local.clone()
+    n, (nr, nc) = a.n_m, A.shape
+    r0, c0 = a.row0, a.col0
+    dtype, dev = A.dtype, A.device
+    b = max(1, min(block, n))
+    d = torch.zeros(n, dtype=dtype, device=dev)
+    e = torch.zeros(max(n - 1, 0), dtype=dtype, device=dev)
+    taus = torch.zeros(n, dtype=dtype, device=dev)
+    groups = wy_groups(n, block)
+    mine = {i: torch.zeros((n - gs, w), dtype=dtype, device=dev)
+            for i, (gs, w) in enumerate(groups) if i % grid.size == grid.rank}
+    gb = groups[0][1]                      # a multiple of the panel width
+
+    def local(lo: int):
+        """This block's rows and columns at global index >= lo, as local
+        starts (nr / nc when none)."""
+        return min(max(lo - r0, 0), nr), min(max(lo - c0, 0), nc)
+
+    for s in range(0, n, b):
+        bw = min(b, n - s)
+        m = n - s
+        # the panel's columns, rows s..n-1, whole on every rank
+        lr, lc = local(s)
+        lc1 = min(max(s + bw - c0, 0), nc)
+        panel = torch.zeros((m, bw), dtype=dtype, device=dev)
+        if lr < nr and lc < lc1:
+            panel[r0 + lr - s:r0 + nr - s, c0 + lc - s:c0 + lc1 - s] = \
+                A[lr:, lc:lc1]
+        pm.all_reduce(panel, grid)
+        Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
+        Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
+        for j in range(bw):
+            c = s + j
+            col = panel[j:, j] - Vp[j:, :j] @ Wp[j, :j] \
+                - Wp[j:, :j] @ Vp[j, :j]
+            d[c] = col[0]
+            if c == n - 1:
+                break
+            head, tail, tau, beta = _householder(col[2:], col[1])
+            e[c] = beta
+            taus[c] = tau
+            r = j + 1
+            g = s + r                      # global index of v[0]
+            v = torch.cat([head.reshape(1), tail])
+            # A22 v: this block's rows and columns >= g in this rank's rows
+            # of a zeroed column, summed over the grid (the process-row
+            # reduction and the process-column gather in one call)
+            av = torch.zeros(n - g, dtype=dtype, device=dev)
+            lr, lc = local(g)
+            if lr < nr and lc < nc:
+                av[r0 + lr - g:r0 + nr - g] = \
+                    A[lr:, lc:] @ v[c0 + lc - g:c0 + nc - g]
+            pm.all_reduce(av, grid)
+            Vr, Wr = Vp[r:, :j], Wp[r:, :j]
+            av = av - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
+            w = tau * av
+            w = w - (0.5 * tau * (w @ v)) * v
+            Vp[r:, j] = v
+            Wp[r:, j] = w
+        lr, lc = local(s + bw)
+        if bw < m and lr < nr and lc < nc:
+            vw = torch.cat([Vp, Wp], dim=1)
+            wv = torch.cat([Wp, Vp], dim=1)
+            A[lr:, lc:].addmm_(vw[r0 + lr - s:r0 + nr - s],
+                               wv[c0 + lc - s:c0 + nc - s].T, alpha=-1.0)
+        if s // gb in mine:
+            gs = groups[s // gb][0]
+            mine[s // gb][s - gs:, s - gs:s - gs + bw] = Vp
+    return TridiagResult(d=d, e=e, V=GridReflectors(groups, mine), taus=taus)
+
+
 def wy_t_factor(v: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     """Compact-WY T factor: ``H_1...H_b = I - V T V^T`` with T upper
     triangular, via ``T = inv(diag(1/tau) + striu(V^T V))``.
@@ -122,17 +241,13 @@ def apply_wy(V: torch.Tensor, taus: torch.Tensor, z: torch.Tensor,
     (column c zero above row c), each group of panels as one compact-WY
     product.
 
-    Groups of panels of up to 512 columns are applied last to first, each
-    as ``z -= V (T (V^T z))`` on the rows the group's reflectors touch:
-    one pass over z per group instead of one per panel.  Returns a new
-    tensor; ``z`` is not modified.
+    The groups of :func:`wy_groups` (512 columns) are applied last to
+    first, each as ``z -= V (T (V^T z))`` on the rows the group's
+    reflectors touch: one pass over z per group instead of one per panel.
+    Returns a new tensor; ``z`` is not modified.
     """
-    n = V.shape[0]
-    b = max(1, min(block, n))
-    gb = max(1, 512 // b) * b
     z = z.clone()
-    for s in reversed(range(0, n, gb)):
-        w = min(gb, n - s)
+    for s, w in reversed(wy_groups(V.shape[0], block)):
         v = V[s:, s:s + w]                 # rows above s are zero
         t = wy_t_factor(v, taus[s:s + w])
         zs = z[s:]
@@ -140,10 +255,24 @@ def apply_wy(V: torch.Tensor, taus: torch.Tensor, z: torch.Tensor,
     return z
 
 
-def apply_q(tri: TridiagResult, z: torch.Tensor,
-            block: int = 64) -> torch.Tensor:
-    """``Q z`` with Q from :func:`tridiagonalize` (pdormtr analog)."""
-    return apply_wy(tri.V, tri.taus, z, block)
+def apply_q(tri: TridiagResult, z: torch.Tensor, block: int = 64,
+            mesh: Optional[pm.ProcessGrid] = None) -> torch.Tensor:
+    """``Q z`` with Q from :func:`tridiagonalize` (pdormtr analog).  On a
+    grid ``z`` is a rank's own columns, whole: each WY group is broadcast
+    from the rank that holds it and applied to them, last to first."""
+    if mesh is None:
+        return apply_wy(tri.V, tri.taus, z, block)
+    z = z.clone()
+    n = z.shape[0]
+    for i, (s, w) in reversed(list(enumerate(tri.V.groups))):
+        v = tri.V.mine.get(i)
+        if v is None:
+            v = torch.empty((n - s, w), dtype=z.dtype, device=z.device)
+        pm.broadcast(v, mesh, i % mesh.size)
+        t = wy_t_factor(v, tri.taus[s:s + w])
+        zs = z[s:]
+        zs -= v @ (t @ (v.T @ zs))
+    return z
 
 
 def tridiag_matrix(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,18 @@
 
 Counterpart of ``eigenkernel_tpu/solvers/api.py``: dispatch the ``-s``
 name, place the matrices on the device, run the standard or generalized
-pipeline, slice the requested eigenpairs.  There is no padding and no
-mesh: every op here takes any n, and one device runs the solve.
-``dtype='mixed'`` runs the pipeline in float32 and refines its eigenpairs
-against float64 copies of the caller's matrices (``ops/refine.py``).
+pipeline, slice the requested eigenpairs.  On one device there is no
+padding: every op here takes any n.  ``dtype='mixed'`` runs the pipeline
+in float32 and refines its eigenpairs against float64 copies of the
+caller's matrices (``ops/refine.py``).
+
+On a process grid (``mesh=``, JAX ``api.py:145-195``) the matrix is
+zero-padded to the grid's ``padded_dim`` with a Gershgorin sentinel on the
+padding diagonal, so its lowest n pairs are the logical ones, and the
+one-stage core runs sharded: ``scalapack`` and ``scalapack_select``.
+``lapack`` runs replicated on every rank, as in the JAX package, and
+every rank keeps its share of the columns.  The other names refuse
+(:func:`mesh_refusal`).
 """
 
 from __future__ import annotations
@@ -22,12 +30,33 @@ from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
 from eigenkernel_tpu_torch.core.types import EigenPairs
 from eigenkernel_tpu_torch.obs.events import EventLog
 from eigenkernel_tpu_torch.obs.mem import memstats
+from eigenkernel_tpu_torch.ops.blocked import gershgorin_sentinel
 from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs
+from eigenkernel_tpu_torch.parallel import mesh as pm
 from eigenkernel_tpu_torch.solvers import pipelines as pl
 from eigenkernel_tpu_torch.solvers.registry import (AUTO_NAMES, get_spec,
                                                     resolve_auto)
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
+MESH_SOLVERS = ("scalapack", "scalapack_select", "lapack")
+
+
+class NotPortedOnMeshError(ValueError):
+    pass
+
+
+def mesh_refusal(solver: str, mixed: bool = False) -> Optional[str]:
+    """Why ``solver`` cannot run on a process grid yet, or None."""
+    where = "(ROADMAP A.6, slice 7b/7c/7d)"
+    if solver not in MESH_SOLVERS:
+        return f"{solver} on a mesh is not ported yet {where}"
+    if mixed:
+        return f"--dtype mixed on a mesh is not ported yet {where}"
+    if solver == "scalapack_select" and \
+            os.environ.get("EK_SELECT_CORE") == "two_stage":
+        return (f"EK_SELECT_CORE=two_stage on a mesh is not ported yet "
+                f"{where}")
+    return None
 
 
 def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
@@ -45,7 +74,8 @@ def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
 def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
           n_vec: Optional[int] = None, block_size: int = 0,
           log: Optional[EventLog] = None, dtype: Any = None,
-          device: Any = None) -> EigenPairs:
+          device: Any = None, mesh: Optional[pm.ProcessGrid] = None,
+          n_logical: Optional[int] = None) -> EigenPairs:
     """Solve ``A x = lambda x``, or ``A x = lambda B x`` with B SPD.
 
     ``a`` and ``b`` are dense symmetric matrices (numpy arrays or torch
@@ -56,12 +86,22 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     (event ``solve:refine``) and returns float64.  Returns the ``n_vec``
     lowest eigenvalues ascending and their eigenvectors in columns,
     B-orthonormal for a generalized problem (the dsygv convention).
+
+    With ``mesh`` (a :class:`~eigenkernel_tpu_torch.parallel.mesh.ProcessGrid`,
+    called on every rank) ``a`` is a DistMatrix on it, or the whole
+    matrix on every rank, of which each rank takes its block; the solve
+    runs on the grid's device and returns this rank's columns
+    (:class:`EigenPairs` ``grid`` and ``cols``).  ``n_logical`` is the
+    logical dimension of an ``a`` that carries zero padding.
     """
-    n = int(a.shape[0])
+    if n_logical is not None:
+        n = int(n_logical)
+    else:
+        n = a.n if isinstance(a, pm.DistMatrix) else int(a.shape[0])
     if solver in AUTO_NAMES:
         solver = resolve_auto(solver, n, generalized=b is not None,
                               selecting=n_vec is not None and n_vec != n,
-                              on_mesh=False, backend="cuda")
+                              on_mesh=mesh is not None, backend="cuda")
     spec = get_spec(solver)
     if spec.generalized != (b is not None):
         kind = "generalized" if b is not None else "standard"
@@ -69,13 +109,21 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     if not spec.selecting and n_vec is not None and n_vec != n:
         raise ValueError(
             f"solver '{solver}' does not support partial computation")
-    if a.shape[0] != a.shape[1] or (b is not None
-                                    and tuple(b.shape) != tuple(a.shape)):
-        raise ValueError("matrix dimension mismatch")
     n_vec = n if n_vec is None else int(n_vec)
     if not 0 < n_vec <= n:
         raise ValueError(f"n_vec={n_vec} out of range for n={n}")
     mixed = isinstance(dtype, str) and dtype == "mixed"
+    if mesh is not None:
+        why = mesh_refusal(solver, mixed)
+        if why is not None:
+            raise NotPortedOnMeshError(why)
+        if b is not None:
+            raise ValueError(f"solver '{solver}' is not for generalized "
+                             f"problems")
+        return _solve_grid(a, spec, n, n_vec, block_size, log, dtype, mesh)
+    if a.shape[0] != a.shape[1] or (b is not None
+                                    and tuple(b.shape) != tuple(a.shape)):
+        raise ValueError("matrix dimension mismatch")
     torch_dtype = torch.float32 if mixed else _as_dtype(dtype, a)
     if device is None:
         device = a.device if isinstance(a, torch.Tensor) else "cuda"
@@ -117,3 +165,47 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     return EigenPairs(values=values, vectors=vectors,
                       meta={"solver": solver, "core": core, "panel": panel,
                             "device": str(device)})
+
+
+def _solve_grid(a, spec, n: int, n_vec: int, block_size: int,
+                log: Optional[EventLog], dtype: Any,
+                grid: pm.ProcessGrid) -> EigenPairs:
+    """A solve of a name of :data:`MESH_SOLVERS` on ``grid``."""
+    src = a.local if isinstance(a, pm.DistMatrix) else a
+    torch_dtype = _as_dtype(dtype, src)
+    set_matmul_precision_highest()
+    if isinstance(a, pm.DistMatrix):
+        if a.grid is not grid:
+            raise ValueError("solve: the matrix is on another grid")
+        dm = a.with_local(a.local.to(device=grid.device, dtype=torch_dtype))
+    else:
+        dm = pm.distribute(a, grid, torch_dtype, n)
+    panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
+    ctx = pl.SolverContext(device=grid.device, block_size=panel, log=log,
+                           mesh=grid)
+    if spec.core == "eigh":
+        # lapack: the whole matrix and the solve on every rank
+        full = pm.gather(dm)[:n, :n]
+        w, z = pl.sep_eigh(ctx, full, n_vec)
+        del full
+        out = pm.contiguous_shares(w, z, grid)
+    else:
+        if dm.n_m > n:
+            # the padding diagonal above the spectrum: the lowest n pairs
+            # of the padded matrix are the logical ones
+            mu = gershgorin_sentinel(dm, grid)
+            rows = torch.arange(dm.row0, dm.row0 + dm.local.shape[0],
+                                device=grid.device)
+            at = rows - dm.col0
+            pad = (rows >= n) & (at >= 0) & (at < dm.local.shape[1])
+            local = dm.local.clone()
+            local[pad, at[pad]] = mu
+            dm = dm.with_local(local)
+        out = pl.sep_one_stage(ctx, dm, n_vec)
+    keep = out.cols < n_vec
+    return EigenPairs(values=out.values[:n_vec],
+                      vectors=out.vectors[:n, keep],
+                      meta={"solver": spec.name, "core": spec.core,
+                            "panel": panel, "device": str(grid.device),
+                            "grid": (grid.R, grid.C)},
+                      grid=grid, cols=out.cols[keep])

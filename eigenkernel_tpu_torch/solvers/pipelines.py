@@ -28,6 +28,13 @@ reference's hierarchical names (``solve:reduce_elpa``,
 ``recovery_generalized``), with a
 ``torch.cuda.synchronize()`` before each clock stops, and its model
 GFLOP/s as ``!<stage>_Gflops``.
+
+On a process grid (``SolverContext.mesh``) the one-stage core runs
+sharded (``sep_one_stage``: the matrix a
+:class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix`, the result a
+:class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`), and every
+stage's clock stops after a barrier over the grid too, so its seconds are
+the slowest rank's.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from eigenkernel_tpu_torch.obs.events import EventLog, barrier
 from eigenkernel_tpu_torch.ops import householder, jacobi, qdwh
 from eigenkernel_tpu_torch.ops import reduction as red
 from eigenkernel_tpu_torch.ops import tridiag as td
+from eigenkernel_tpu_torch.parallel import mesh as pm
 
 
 @dataclass
@@ -51,12 +59,15 @@ class SolverContext:
     device: torch.device
     block_size: int = DEFAULT_BLOCK_SIZE
     log: Optional[EventLog] = None
+    mesh: Optional[pm.ProcessGrid] = None
 
     def tick(self, name: str, t0: float,
              flops: Optional[float] = None) -> None:
         if self.log is None:
             return
         barrier(self.device)
+        if self.mesh is not None:
+            pm.barrier(self.mesh)
         dt = time.time() - t0
         self.log.add_event(name, dt)
         if flops and dt > 0:
@@ -66,21 +77,27 @@ class SolverContext:
 def _run(ctx: SolverContext, name: str, fn: Callable, *args,
          flops: Optional[float] = None) -> Any:
     t0 = time.time()
-    out = fn(*args)
-    ctx.tick(name, t0, flops=flops)
+    # the stage's span in a torch.profiler trace (--profile)
+    with torch.profiler.record_function(name):
+        out = fn(*args)
+        ctx.tick(name, t0, flops=flops)
     return out
 
 
-def sep_one_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):
-    """pdsytrd + tridiagonal solve + pdormtr analog (see module doc)."""
-    n = a.shape[0]
+def sep_one_stage(ctx: SolverContext, a, n_vec: int):
+    """pdsytrd + tridiagonal solve + pdormtr analog (see module doc).  On
+    a grid ``a`` is a DistMatrix and the result a ColumnShares."""
+    mesh = ctx.mesh
+    n = a.shape[0] if mesh is None else a.n_m
     tri = _run(ctx, "sep:tridiagonalize", householder.tridiagonalize,
-               a, ctx.block_size, flops=fl.tridiagonalize(n))
-    w, z = _run(ctx, "sep:tridiag_eigh", td.tridiag_eigh, tri.d, tri.e,
-                n_vec, flops=fl.tridiag_eigh(n, n_vec))
-    z = _run(ctx, "sep:back_transform", householder.apply_q, tri, z,
-             ctx.block_size, flops=fl.back_transform_one_stage(n, n_vec))
-    return w, z
+               a, ctx.block_size, mesh, flops=fl.tridiagonalize(n))
+    out = _run(ctx, "sep:tridiag_eigh", td.tridiag_eigh, tri.d, tri.e,
+               n_vec, mesh, flops=fl.tridiag_eigh(n, n_vec))
+    z = _run(ctx, "sep:back_transform", householder.apply_q, tri, out[1],
+             ctx.block_size, mesh, flops=fl.back_transform_one_stage(n, n_vec))
+    if mesh is None:
+        return out[0], z
+    return out._replace(vectors=z)
 
 
 def sep_two_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):

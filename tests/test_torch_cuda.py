@@ -12,6 +12,8 @@ import pytest
 import scipy.linalg as sla
 import torch
 
+import torch_mesh_ranks as ranks
+
 from eigenkernel_tpu_torch.ops import (backtransform, band, build, bulge,
                                        chase, dc, jacobi, sturm,
                                        tridiag_solve, wf_bt)
@@ -647,3 +649,45 @@ def test_extra_cores_and_mixed_on_card(cuda_device, monkeypatch, solver):
     r = np.linalg.norm(a @ v - (bb @ v) * w[None, :], axis=0).max()
     assert r <= 1e-12 * np.linalg.norm(a)
     assert np.abs(v.T @ bb @ v - np.eye(n)).max() <= 1e-12
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_select(cuda_device, tmp_path):
+    # a 1 x 2 grid of gloo ranks sharing the card: B1 and B2 launched on
+    # each; on the selecting core's (d, e) each rank's eigenvalues and
+    # first shifted solve equal one device's kernels bit for bit
+    from eigenkernel_tpu_torch.ops import tridiag
+
+    n, k = 300, 20
+    rng = np.random.default_rng(50)
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    ranks.run_ranks("card_select", 2, (1, 2), a, k, str(tmp_path))
+    res = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    d = torch.tensor(res[0]["d"], device=cuda_device)
+    e = torch.tensor(res[0]["e"], device=cuda_device)
+    calls = []
+    solve_fn = tridiag_solve.tridiag_solve
+
+    def record(*args):
+        calls.append(args)
+        return solve_fn(*args)
+
+    tridiag_solve.tridiag_solve = record
+    try:
+        lam, _ = tridiag.tridiag_eigh(d, e, k)
+    finally:
+        tridiag_solve.tridiag_solve = solve_fn
+    first = solve_fn(*calls[0]).cpu().numpy()
+    for r in res:
+        assert (r["launches"] > 0).all()
+        j0, j1 = r["lanes"]
+        assert np.array_equal(r["d"], res[0]["d"])
+        assert np.array_equal(r["first"], first[:, j0:j1])
+    w, v = res[0]["w"], res[0]["v"]
+    assert np.array_equal(w, lam.cpu().numpy())
+    ref = np.linalg.eigvalsh(a)[:k]
+    assert np.abs(w - ref).max() <= 1e-10 * np.abs(ref).max()
+    assert np.linalg.norm(a @ v - v * w, axis=0).max() <= \
+        1e-12 * np.linalg.norm(a)
+    assert np.abs(v.T @ v - np.eye(k)).max() <= 1e-10

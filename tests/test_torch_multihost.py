@@ -1,0 +1,160 @@
+"""The port's multi-process runtime (``parallel/multihost.py``) and the
+CLI on several processes, all gloo on the CPU on 127.0.0.1.
+
+Each test that starts processes has its own timeout and kills them on
+failure; a test writes its own MatrixMarket file.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import torch_mesh_ranks as ranks
+from eigenkernel_tpu_torch.cli import main as port_main
+from eigenkernel_tpu_torch.core.types import MatrixInfo, SparseMatrix
+from eigenkernel_tpu_torch.io.matrix_market import write_matrix
+from eigenkernel_tpu_torch.parallel import multihost as mh
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 120
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    torch.set_num_threads(2)
+
+
+def _write_mtx(path, n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    i, j = np.tril_indices(n)
+    keep = (i - j <= 5) | (rng.random(i.size) < 0.1)
+    write_matrix(str(path), SparseMatrix(n, i[keep], j[keep], a[i, j][keep]))
+
+
+def _run_processes(workdir, argv, world=2, extra_env=None):
+    """``python -m eigenkernel_tpu_torch argv`` as ``world`` processes of
+    one run; returns (exit codes, outputs)."""
+    env_base = dict(os.environ, EK_NUM_PROCESSES=str(world),
+                    EK_COORDINATOR=f"127.0.0.1:{ranks.free_port()}",
+                    PYTHONPATH=ROOT, OMP_NUM_THREADS="1", **(extra_env or {}))
+    procs = []
+    try:
+        for pid in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "eigenkernel_tpu_torch", *argv],
+                cwd=workdir, env=dict(env_base, EK_PROCESS_ID=str(pid)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        outs = [p.communicate(timeout=TIMEOUT_S)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def test_init_distributed_names_its_peers():
+    # more than one process and no coordinator or id: raise, wait for no one
+    with pytest.raises(ValueError):
+        mh.init_distributed(None, 2, 0)
+    with pytest.raises(ValueError):
+        mh.init_distributed("127.0.0.1:1", 2, None)
+    mh.init_distributed(None, None, None)      # one process: nothing to do
+    assert not torch.distributed.is_initialized()
+    assert mh.is_master() and mh.process_count() == 1
+
+
+def test_bcast_round_trips(tmp_path):
+    info = MatrixInfo(rep="coordinate", field="real", symm="symmetric",
+                      rows=50, cols=50, entries=7)
+    rng = np.random.default_rng(40)
+    coo = (np.array([0, 3, 9, 20, 31, 40, 49]),
+           np.array([0, 1, 9, 2, 30, 40, 0]), rng.standard_normal(7))
+    ranks.run_ranks("bcast_round_trip", 2, info, coo, str(tmp_path))
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz", allow_pickle=True)
+        assert list(got["info"]) == ["coordinate", "real", "symmetric", 50,
+                                     50, 7]
+        assert int(got["size"]) == 50
+        assert np.array_equal(got["rows"], coo[0])
+        assert np.array_equal(got["cols"], coo[1])
+        assert np.array_equal(got["values"], coo[2])
+        # process 0's word decides: ok, then not ok; a failed probe is None
+        assert got["ok"].tolist() == [True, False]
+        assert bool(got["failed"])
+
+
+@pytest.mark.parametrize("solver,k", [("scalapack", None),
+                                      ("scalapack_select", 6),
+                                      ("lapack", None)])
+def test_two_process_cli(tmp_path, solver, k):
+    n = 60
+    mtx = tmp_path / "A.mtx"
+    _write_mtx(mtx, n, 41)
+    kk = n if k is None else k
+    argv = ["--platform", "cpu", "-s", solver, "-c", "-1", "-t", f"1,{kk}",
+            "-d", "vec", "-p", "1-4", str(mtx)]
+    if k is not None:
+        argv[4:4] = ["-n", str(k)]
+    two = tmp_path / "two"
+    two.mkdir()
+    codes, outs = _run_processes(two, ["--mesh", "1,2", *argv])
+    assert codes == [0, 0], outs
+    assert "processes: 2" in outs[0]
+    one = tmp_path / "one"
+    one.mkdir()
+    cwd = os.getcwd()
+    os.chdir(one)
+    try:
+        assert port_main(argv) == 0
+    finally:
+        os.chdir(cwd)
+    ev2 = np.loadtxt(two / "eigenvalues.dat")
+    ev1 = np.loadtxt(one / "eigenvalues.dat")
+    assert ev2.shape == (kk, 2)
+    assert np.abs(ev2[:, 1] - ev1[:, 1]).max() <= 1e-12
+    files = sorted(os.listdir(two / "vec"))
+    assert files == [f"{j:08d}.dat" for j in range(1, 5)]
+    for j in range(1, 5):
+        v2 = np.loadtxt(two / "vec" / f"{j:08d}.dat")
+        v1 = np.loadtxt(one / "vec" / f"{j:08d}.dat")
+        assert v2.shape == (n, 3)
+        # the same vector, up to its sign
+        assert min(np.abs(v2[:, 2] - v1[:, 2]).max(),
+                   np.abs(v2[:, 2] + v1[:, 2]).max()) <= 1e-10
+    # the checks ran on the grid and met the float64 bars
+    for line in outs[0].splitlines():
+        if line.startswith(("residual norm (max)", "orthogonality")):
+            assert float(line.split()[-1]) <= 1e-12
+
+
+def test_two_process_master_error_no_deadlock(tmp_path):
+    # a missing input on process 0: both processes exit 1, no deadlock
+    codes, outs = _run_processes(tmp_path, [
+        "--platform", "cpu", "--mesh", "1,2", "-s", "scalapack",
+        str(tmp_path / "missing.mtx")])
+    assert codes == [1, 1], outs
+    assert any("[Error]" in o for o in outs)
+
+
+@pytest.mark.parametrize("argv", [
+    ["-s", "jacobi"], ["-s", "eigensx"], ["-s", "qdwh_dc"], ["-s", "eigh"],
+    ["-s", "scalapack", "--dtype", "mixed"]])
+def test_grid_refuses_names_outside_the_slice(tmp_path, monkeypatch, capsys,
+                                              argv):
+    # on two processes these names stop before any process joins a group
+    mtx = tmp_path / "A.mtx"
+    _write_mtx(mtx, 20, 42)
+    monkeypatch.setenv("EK_NUM_PROCESSES", "2")
+    monkeypatch.chdir(tmp_path)
+    assert port_main(["--platform", "cpu", *argv, str(mtx)]) == 1
+    err = capsys.readouterr().err
+    assert "[Error]" in err and "on a mesh is not ported yet" in err
+    assert not torch.distributed.is_initialized()
+    assert not (tmp_path / "eigenvalues.dat").exists()

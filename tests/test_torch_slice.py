@@ -159,14 +159,15 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
         _write_mtx(mtx_b, 31, 3)
         argv = ["--platform", "cpu", "-s", "general_jacobi", str(mtx),
                 str(mtx_b)]
-    elif case == "num_processes":
+    elif case == "num_processes":     # no coordinator to join: at once
         monkeypatch.setenv("EK_NUM_PROCESSES", "2")
+        monkeypatch.delenv("EK_COORDINATOR", raising=False)
     elif case == "no_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         argv = argv[2:]                  # the default platform is cuda
     elif case == "unknown_solver":
         argv[3] = "nope"
-    elif case == "not_ported_core":   # the mesh is not ported yet
+    elif case == "not_ported_core":   # jacobi on a grid is not ported yet
         argv = ["--platform", "cpu", "--mesh", "1,2", "-s", "jacobi",
                 str(mtx)]
     elif case == "mixed_dtype":       # -n on a core that takes all pairs
@@ -174,12 +175,28 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
                 "-n", "3", str(mtx)]
     elif case == "missing_file":
         argv[-1] = str(tmp_path / "absent.mtx")
-    elif case == "dc_core":           # --profile is not ported yet
-        argv = ["--platform", "cpu", "--profile", str(tmp_path / "prof"),
-                "-s", "qdwh_dc", str(mtx)]
+    elif case == "dc_core":           # a 2 x 2 grid in a one-process run
+        argv = ["--platform", "cpu", "--mesh", "2,2", "-s",
+                "scalapack_select", "-n", "3", str(mtx)]
     assert _run(port_main, tmp_path, argv) == 1
     assert "[Error]" in capsys.readouterr().err
     assert not (tmp_path / "eigenvalues.dat").exists()
+
+
+def test_cli_profile_writes_trace(tmp_path):
+    # --profile: torch.profiler around the solve, one trace a process,
+    # with the stages' spans
+    mtx = tmp_path / "A.mtx"
+    _write_mtx(mtx, 40, 4)
+    rc = _run(port_main, tmp_path, [
+        "--platform", "cpu", "-s", "scalapack_select", "-n", "5",
+        "--profile", str(tmp_path / "prof"), str(mtx)])
+    assert rc == 0
+    trace = json.loads((tmp_path / "prof" / "trace_rank0.json").read_text())
+    names = {ev.get("name") for ev in trace["traceEvents"]}
+    assert {"sep:tridiagonalize", "sep:tridiag_eigh",
+            "sep:back_transform"} <= names
+    assert any(str(nm).startswith("aten::") for nm in names)
 
 
 @pytest.mark.parametrize("solver,dtype", [

@@ -1,0 +1,267 @@
+"""Rank processes for the port's grid tests (``test_torch_mesh.py``,
+``test_torch_multihost.py``, ``test_torch_cuda.py``).
+
+:func:`run_ranks` starts ``world`` spawned processes that join one gloo
+group on 127.0.0.1 at a free port, each with one thread, and runs a
+function of this module in each; a rank writes what the test reads into
+``out_dir``.  A rank that fails or outlives the timeout fails the call,
+and every process still alive is killed.  This module imports torch and
+the port only, so a rank starts without JAX.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import socket
+import time
+import traceback
+
+import numpy as np
+
+TIMEOUT_S = 120
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(fn_name: str, rank: int, world: int, port: int, args: tuple,
+           backend: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from eigenkernel_tpu_torch.parallel import multihost
+
+    multihost.init_distributed(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        globals()[fn_name](rank, *args)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(fn_name: str, world: int, *args, backend: str = "gloo",
+              timeout: float = TIMEOUT_S) -> None:
+    """Run ``fn_name(rank, *args)`` on ``world`` ranks; raise unless every
+    rank exits 0 within ``timeout`` seconds."""
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_entry, args=(fn_name, r, world, port, args,
+                                              backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            raise TimeoutError(f"ranks {hung} of {fn_name} still running "
+                               f"after {timeout} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"{fn_name}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+# ---------------------------------------------------------------------------
+# rank functions
+# ---------------------------------------------------------------------------
+
+def _grid(shape, device="cpu"):
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    return pm.make_mesh(tuple(shape), device)
+
+
+def _whole(values, vectors, cols, grid):
+    """(values, vectors) of a rank's column shares, whole, as numpy."""
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    k = values.shape[0]
+    keep = cols < k
+    v = pm.gather_slots(vectors[:, keep], (slice(None), cols[keep]),
+                        (vectors.shape[0], k), grid)
+    return values.cpu().numpy(), v.cpu().numpy()
+
+
+def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
+    """Solve each (tag, solver, n_vec, dtype, a) of ``cases`` on the grid
+    and write the eigenpairs whole, with the verifier's numbers (residual
+    average and max, orthogonality) and the ipratios."""
+    import torch
+
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+    from eigenkernel_tpu_torch.solvers.api import solve
+    from eigenkernel_tpu_torch.verify import (eval_orthogonality,
+                                              eval_residual_norm,
+                                              get_ipratios)
+
+    grid = _grid(shape)
+    out = {}
+    for tag, solver, n_vec, dtype, a in cases:
+        dm = pm.distribute(a, grid, getattr(torch, dtype))
+        pairs = solve(dm, solver=solver, n_vec=n_vec, mesh=grid)
+        w, v = _whole(pairs.values, pairs.vectors, pairs.cols, grid)
+        k = w.shape[0]
+        _, ave, mx = eval_residual_norm(dm, pairs, k)
+        out[f"{tag}/w"], out[f"{tag}/v"] = w, v
+        out[f"{tag}/check"] = np.array([ave, mx,
+                                        eval_orthogonality(pairs, 1, k)])
+        out[f"{tag}/ipr"] = get_ipratios(pairs)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def module_checks(rank: int, shape, inputs: dict, out_dir: str) -> None:
+    """The sharded modules on their own: ``tridiagonalize`` and
+    ``apply_q`` (each (matrix, block) of ``inputs["tri"]``),
+    ``tridiag_dc``, the selecting core (its eigenvalues and the first
+    shifted solve's lanes recorded), ``distribute_coo`` and the grid's
+    Gershgorin sentinel."""
+    import torch
+
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+    from eigenkernel_tpu_torch.ops import dc, householder, tridiag
+    from eigenkernel_tpu_torch.ops import tridiag_solve
+    from eigenkernel_tpu_torch.ops.blocked import gershgorin_sentinel
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    grid = _grid(shape)
+    f64 = torch.float64
+    out = {}
+    for c, (a, block) in enumerate(inputs["tri"]):
+        tri = householder.tridiagonalize(pm.distribute(a, grid, f64), block,
+                                         mesh=grid)
+        for f in ("d", "e", "taus"):
+            out[f"tri{c}/{f}"] = getattr(tri, f).numpy()
+        # this rank's WY groups, in place in V; Q applied on the grid to
+        # this rank's columns of the identity
+        n = tri.d.shape[0]
+        v_part = torch.zeros((n, n), dtype=f64)
+        for i, blk in tri.V.mine.items():
+            s, w = tri.V.groups[i]
+            v_part[s:, s:s + w] = blk
+        out[f"tri{c}/V_part"] = v_part.numpy()
+        out[f"tri{c}/groups"] = np.array(sorted(tri.V.mine), dtype=np.int64)
+        lo, hi = pm.share(n, grid.size, grid.rank)
+        eye = torch.eye(n, dtype=f64)[:, lo:hi]
+        q = householder.apply_q(tri, eye, block, mesh=grid)
+        out[f"tri{c}/Q"] = _whole(tri.d, q, torch.arange(lo, hi), grid)[1]
+
+    sharded = []
+    merge = dc._merge_one
+
+    def recording(*args, **kwargs):
+        grid_arg = args[6] if len(args) > 6 else kwargs.get("grid")
+        sharded.append(grid_arg is not None)
+        return merge(*args, **kwargs)
+
+    dc._merge_one = recording
+    try:
+        d = torch.tensor(inputs["dc_d"])
+        e = torch.tensor(inputs["dc_e"])
+        sh = dc.tridiag_dc(d, e, mesh=grid)
+    finally:
+        dc._merge_one = merge
+    out["dc/w"], out["dc/v"] = _whole(*sh, grid)
+    out["dc/sharded"] = np.array(sharded)
+
+    first = []
+    solve_fn = tridiag_solve.tridiag_solve
+
+    def first_solve(*args):
+        x = solve_fn(*args)
+        if not first:
+            first.append(x.clone())
+        return x
+
+    tridiag_solve.tridiag_solve = first_solve
+    try:
+        d = torch.tensor(inputs["sel_d"])
+        e = torch.tensor(inputs["sel_e"])
+        k = int(inputs["sel_k"])
+        sh = tridiag.tridiag_eigh(d, e, k, mesh=grid)
+    finally:
+        tridiag_solve.tridiag_solve = solve_fn
+    out["sel/lam"] = sh.values.numpy()
+    out["sel/first"] = first[0].numpy() if first else np.zeros((d.shape[0],
+                                                                0))
+    out["sel/lanes"] = np.array(pm.share(k, grid.size, grid.rank))
+    out["sel/w"], out["sel/v"] = _whole(*sh, grid)
+
+    rows, cols, vals = inputs["coo"]
+    coo = SparseMatrix(int(inputs["coo_n"]), rows, cols, vals)
+    dm = pm.distribute_coo(coo, grid, f64)
+    out["coo/block"] = dm.local.numpy()
+    out["coo/at"] = np.array([dm.row0, dm.col0, dm.n_m])
+    out["coo/sentinel"] = np.array(float(gershgorin_sentinel(dm, grid)))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def bcast_round_trip(rank: int, info, coo, out_dir: str) -> None:
+    """Process 0 broadcasts ``info`` and ``coo`` (the others pass None),
+    then a failed read and a failed probe; each rank writes what it got."""
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+    from eigenkernel_tpu_torch.parallel import multihost as mh
+
+    master = mh.is_master()
+    got = mh.bcast_matrix_info(info if master else None)
+    sp = SparseMatrix(info.rows, *coo) if master else None
+    sp = mh.bcast_coo(sp, got.rows, got.entries)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             info=np.array([got.rep, got.field, got.symm, got.rows, got.cols,
+                            got.entries], dtype=object),
+             rows=sp.rows, cols=sp.cols, values=sp.values, size=sp.size,
+             ok=np.array([mh.bcast_ok(master), mh.bcast_ok(not master)]),
+             failed=np.array(mh.bcast_matrix_info(None) is None))
+
+
+def card_select(rank: int, shape, a, k: int, out_dir: str) -> None:
+    """``scalapack_select -n k`` of ``a`` on a grid of ranks sharing card
+    0 (gloo on CUDA tensors): the eigenpairs whole, the kernels' launches
+    in the solve, and the selecting core's (d, e), eigenvalues and first
+    shifted solve (made again after the counted run)."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import sturm, tridiag, tridiag_solve
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+    from eigenkernel_tpu_torch.solvers.api import solve
+
+    torch.cuda.set_device(0)
+    grid = _grid(shape, torch.device("cuda", 0))
+    seen = {}
+    eigh_fn, solve_fn = tridiag.tridiag_eigh, tridiag_solve.tridiag_solve
+
+    def record(store, fn):
+        def call(*args, **kwargs):
+            store.setdefault(fn.__name__, args)
+            return fn(*args, **kwargs)
+        return call
+
+    tridiag.tridiag_eigh = record(seen, eigh_fn)
+    tridiag_solve.tridiag_solve = record(seen, solve_fn)
+    sturm.LAUNCHES = tridiag_solve.LAUNCHES = 0
+    try:
+        pairs = solve(a, solver="scalapack_select", n_vec=k, mesh=grid)
+        torch.cuda.synchronize()
+    finally:
+        tridiag.tridiag_eigh = eigh_fn
+        tridiag_solve.tridiag_solve = solve_fn
+    launches = [sturm.LAUNCHES, tridiag_solve.LAUNCHES]
+    w, v = _whole(pairs.values, pairs.vectors, pairs.cols, grid)
+    d, e = seen["tridiag_eigh"][:2]
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), w=w, v=v,
+             launches=np.array(launches), d=d.cpu().numpy(),
+             e=e.cpu().numpy(),
+             first=solve_fn(*seen["tridiag_solve"]).cpu().numpy(),
+             lanes=np.array(pm.share(k, grid.size, grid.rank)))
