@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``eigenkernel_tpu_torch``) on one
 CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, on card 0
+    python3 chip_smoke.py --cards    # phases 1, 2, 4, 11 and phase 13's
+                                     # NCCL runs on every card only
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -115,8 +117,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     solves ``scalapack_select -n 500`` through ``solve(...,
     mesh=single_device_mesh())`` (a 1 x 1 grid); on two or more the CLI
     runs on ``EK_NUM_PROCESSES`` = the cards and ``--mesh`` from
-    ``layout_grid``, its eigenvalues.dat held against phase 4's.  Every
-    rank has a join timeout: a rank that fails or hangs fails the phase.
+    ``layout_grid``, its eigenvalues.dat held against phase 4's, and then
+    ``-s general_elpa2`` on phase 11's A and B files, held against phase
+    11's.  Every rank has a join timeout: a rank that fails or hangs fails
+    the phase.
+14. The generalized names and the two-stage core on the process grid:
+    four gloo ranks on the one card as a 2 x 2 grid, float64, each run
+    held against the same name's single-device run: on phase 11's A and
+    B (n = 4096) ``general_scalapacknew_eigens`` (the ``general_auto``
+    pick: the scalapack_new reduction, the one-stage core, D1),
+    ``general_elpa2`` (the elpa reduction, ``to_band`` on blocks, B3 on
+    every rank, D1, the sweep-sharded blocked back-transform) and
+    ``general_scalapack_select -n 500`` under ``EK_SELECT_CORE=two_stage``
+    and ``EK_BACKTRANSFORM=wf_pallas`` (B3, B1/B2 and B4 on the grid); and
+    ``eigensx`` under ``EK_BACKTRANSFORM=pallas`` on phase 9's matrix
+    (n = 2048, seed 6: B5 on the grid).  Eigenvalues within
+    1e-10 ||A||_2 of the single-device run, the grid verifier's B-metric
+    residual and orthogonality to phase 4's bars, each path's kernels
+    launched on every rank, and each rank's B3 (d, e) equal bit for bit
+    to one device's B3 (the dense entry) on the band the grid handed the
+    chase.  Then, outside the launch counts, B3 against its plain version
+    on each run's grid band, and B4 (in the grid's phases of the P
+    stream) and B5 against theirs on rank 0's operands.  Each rank prints
+    its stage seconds, peak device memory (beside the single-device
+    run's) and its collectives' count, host seconds and MiB.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -155,6 +179,7 @@ N_DC = 4096                    # full spectrum through divide and conquer
 N_GEN, K_GEN = 4096, 500       # generalized problems
 N_X, K_X = 4096, 500           # the extra cores and --dtype mixed
 MESH_TIMEOUT_S = 600           # a grid run's ranks must end within this
+PEAK_GIB = {}                  # each CLI run's peak device memory
 # D2's first design (one CTA a block: rows, then columns and V^T; kept in
 # tools/pair_jacobi_rowcol.cu) on the operands of phase 12's comparisons,
 # ms by CUDA events, from this script's run on an NVIDIA H100 80GB HBM3,
@@ -237,16 +262,17 @@ def capture_ends(module, name):
 
 
 @contextlib.contextmanager
-def capture(module, name, limit=None):
+def capture(module, name, limit=None, keywords=False):
     """Record the positional arguments of every call of ``module.name``
-    made inside the block (of the first ``limit`` calls, if given); the
-    calls themselves run unchanged."""
+    made inside the block (of the first ``limit`` calls, if given; with
+    ``keywords``, ``(args, kwargs)``); the calls themselves run
+    unchanged."""
     calls = []
     fn = getattr(module, name)
 
     def recording(*args, **kwargs):
         if limit is None or len(calls) < limit:
-            calls.append(args)
+            calls.append((args, kwargs) if keywords else args)
         return fn(*args, **kwargs)
 
     setattr(module, name, recording)
@@ -473,17 +499,23 @@ def phase_kernels(dev):
 
 
 def run_cli(workdir: str, argv: list) -> str:
-    """Run the port's CLI in process in ``workdir``; returns its stdout."""
+    """Run the port's CLI in process in ``workdir``; returns its stdout.
+    The run's peak device memory goes to ``PEAK_GIB[<workdir's name>]``."""
+    import torch
+
     from eigenkernel_tpu_torch import cli
 
     buf = io.StringIO()
     cwd = os.getcwd()
     os.chdir(workdir)
+    torch.cuda.reset_peak_memory_stats()
     try:
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
     finally:
         os.chdir(cwd)
+    PEAK_GIB[os.path.basename(workdir)] = \
+        torch.cuda.max_memory_allocated() / 2**30
     print(buf.getvalue(), end="")
     check(rc == 0, f"cli {' '.join(argv)} exits 0")
     return buf.getvalue()
@@ -1507,9 +1539,11 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
 
 
 def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
-    """One rank of a grid run (phase 13): join the group, make the grid
-    on ``device``, and solve each (tag, solver, k, n, seed) of ``jobs`` on
-    its ELSES-style matrix; write what the phase reads."""
+    """One rank of a grid run (phases 13 and 14): join the group, make the
+    grid on ``device``, and solve each (tag, solver, k, n, seed[, b_seed[,
+    env]]) of ``jobs`` on its ELSES-style matrix (and the overlap B of
+    ``b_seed``, a generalized problem; ``env`` the solve's environment);
+    write what the phases read."""
     import numpy as np
     import torch
 
@@ -1520,9 +1554,10 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
     from eigenkernel_tpu_torch.core.config import set_matmul_precision_highest
     from eigenkernel_tpu_torch.core.types import SparseMatrix
     from eigenkernel_tpu_torch.obs.events import EventLog
-    from eigenkernel_tpu_torch.ops import tridiag, tridiag_solve
+    from eigenkernel_tpu_torch.ops import chase, tridiag, tridiag_solve
     from eigenkernel_tpu_torch.parallel import mesh as pm
     from eigenkernel_tpu_torch.parallel import multihost
+    from eigenkernel_tpu_torch.solvers import twostage
     from eigenkernel_tpu_torch.solvers.api import solve
     from eigenkernel_tpu_torch.verify import (eval_orthogonality,
                                               eval_residual_norm)
@@ -1532,18 +1567,27 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
     try:
         grid = pm.single_device_mesh(device) if shape == (1, 1) \
             else pm.make_mesh(shape, device)
-        for tag, solver, k, n, seed in jobs:
-            dm = pm.distribute_coo(SparseMatrix(n, *elses_like(n, seed)),
-                                   grid, torch.float64)
+        for tag, solver, k, n, seed, *more in jobs:
+            b_seed, job_env = (list(more) + [None, {}])[:2]
+            mat = SparseMatrix(n, *elses_like(n, seed))
+            dm = pm.distribute_coo(mat, grid, torch.float64)
+            bm = None if b_seed is None else pm.distribute_coo(
+                overlap_like(mat, b_seed), grid, torch.float64)
+            del mat
             log = EventLog(stream=False)
             grid.stats = pm.CollectiveStats()
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            with capture(tridiag, "tridiag_eigh", limit=1) as tri, \
-                    capture(tridiag_solve, "tridiag_solve", limit=1) as b2:
+            with env(**job_env), \
+                    capture(tridiag, "tridiag_eigh", limit=1) as tri, \
+                    capture(tridiag_solve, "tridiag_solve", limit=1) as b2, \
+                    capture(chase, "banded_to_tridiag", limit=1) as b3, \
+                    capture(twostage, "apply_chase_q_wavefront", 1,
+                            keywords=True) as b4, \
+                    capture(twostage, "apply_chase_q_sweeps", 1) as b5:
                 t0 = time.time()
-                pairs = solve(dm, solver=solver, n_vec=k, mesh=grid,
+                pairs = solve(dm, bm, solver=solver, n_vec=k, mesh=grid,
                               log=log)
                 pm.barrier(grid)
                 seconds = time.time() - t0
@@ -1552,8 +1596,8 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
             peak = torch.cuda.max_memory_allocated() \
                 if device.type == "cuda" else 0
             kk = pairs.values.shape[0]
-            _, _, resid = eval_residual_norm(dm, pairs, kk)
-            orth = eval_orthogonality(pairs, 1, kk)
+            _, _, resid = eval_residual_norm(dm, pairs, kk, bm)
+            orth = eval_orthogonality(pairs, 1, kk, bm)
             out = {"values": pairs.values.cpu().numpy(),
                    "stages": np.array(json.dumps(
                        {e["name"]: e["val"] for e in log.events()})),
@@ -1571,8 +1615,21 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                            first=tridiag_solve.tridiag_solve(*b2[0])
                            .cpu().numpy(),
                            lanes=np.array(pm.share(k, grid.size, grid.rank)))
+            if b3:
+                # the chase's banded state and the (d, e) it gave
+                d, e = tri[0][:2]
+                out.update(lower=b3[0][0].cpu().numpy(),
+                           chase_d=d.cpu().numpy(), chase_e=e.cpu().numpy())
+            if rank == 0 and (b4 or b5):
+                # B4's or B5's operands on this rank: the chase's store
+                # and the rank's columns of z (and B4's phase budget)
+                (res, z), kw = b4[0] if b4 else (b5[0], {})
+                out.update(bt_hv=res.HV.cpu().numpy(),
+                           bt_ht=res.HT.cpu().numpy(), bt_z=z.cpu().numpy(),
+                           bt_stream_bytes=np.array(
+                               kw.get("stream_bytes", 0)))
             np.savez(os.path.join(out_dir, f"{tag}_rank{rank}.npz"), **out)
-            del dm, pairs
+            del dm, bm, pairs
     finally:
         torch.distributed.destroy_process_group()
 
@@ -1633,7 +1690,9 @@ def report_grid(tag, world, out_dir, ref_values, norm2, want):
               f"collectives, {secs:.3f} s in them, {nbytes / 2**20:.1f} MiB; "
               f"launches {json.loads(str(out['launches']))}")
         print("    " + ", ".join(f"{name} {val:.6f}" for name, val in
-                                 stages.items() if name.startswith("sep:")))
+                                 stages.items() if name.startswith(
+                                     ("sep:", "solve:", "reduce_",
+                                      "recovery_"))))
         launched = json.loads(str(out["launches"]))
         check(all(launched[key] > 0 for key in want),
               f"{tag} rank {r} launched {', '.join(want)}")
@@ -1647,10 +1706,11 @@ def report_grid(tag, world, out_dir, ref_values, norm2, want):
     return res
 
 
-def phase_mesh(dev, tmp):
+def phase_mesh(dev, tmp, cards_only=False):
     """Phase 13: the one-stage core on a process grid: 2 x 2 gloo ranks
-    on this card, then NCCL on every card; against the single-device
-    float64 runs of phases 10 and 4 (their eigenvalues.dat in ``tmp``)."""
+    on this card (not with ``cards_only``), then NCCL on every card;
+    against the single-device float64 runs of phases 10 and 4 (their
+    eigenvalues.dat in ``tmp``)."""
     import numpy as np
 
     from eigenkernel_tpu_torch.core.types import SparseMatrix
@@ -1659,13 +1719,16 @@ def phase_mesh(dev, tmp):
             ("select", "scalapack_select", K_MAIN, N_MAIN, 1)]
     ref, norm2 = {}, {}
     for (tag, _, _, n, seed), run in zip(jobs, ("dc_float64", "main_float64")):
+        if cards_only and tag == "scalapack":
+            continue
         ref[tag] = np.loadtxt(os.path.join(tmp, run, "eigenvalues.dat"),
                               ndmin=2)[:, 1]
         mat = SparseMatrix(n, *elses_like(n, seed))
         norm2[tag] = float(np.abs(reference_eigvalsh(mat, dev)).max())
     out_dir = os.path.join(tmp, "mesh")
     os.makedirs(out_dir)
-    out = {"gloo_2x2": mesh_one_card(dev, jobs, out_dir, ref, norm2)}
+    out = {} if cards_only else {
+        "gloo_2x2": mesh_one_card(dev, jobs, out_dir, ref, norm2)}
     t0 = time.time()
     grid = mesh_every_card(jobs, out_dir, tmp, ref, norm2)
     out["nccl"] = {"grid": grid, "seconds": time.time() - t0}
@@ -1711,6 +1774,124 @@ def mesh_one_card(dev, jobs, out_dir, ref, norm2):
         check(np.array_equal(res["first"], first[:, j0:j1]),
               f"rank {r}: first B2 solve, lanes {j0}-{j1 - 1} == one "
               f"device's, bit for bit")
+    return out
+
+
+def band_of_lower(lower, n: int, bw: int, dev):
+    """The dense symmetric band whose banded lower storage is ``lower``
+    (``lower[i, q] = band[i, i + q - 2bw]``)."""
+    import torch
+
+    lb = torch.tensor(lower, device=dev)
+    dense = torch.zeros((n, n), dtype=lb.dtype, device=dev)
+    for off in range(bw + 1):
+        idx = torch.arange(off, n, device=dev)
+        dense[idx, idx - off] = lb[off:n, 2 * bw - off]
+        dense[idx - off, idx] = lb[off:n, 2 * bw - off]
+    return dense
+
+
+def phase_mesh_gen(dev, tmp, gen_pair):
+    """Phase 14: the generalized names and the two-stage core on a 2 x 2
+    grid of gloo ranks on this card, float64, each held against the same
+    name's single-device run of phases 9 and 11 (their eigenvalues.dat in
+    ``tmp``): eigenvalues within 1e-10 ||A||_2, the grid verifier's B-metric
+    residual and orthogonality to phase 4's bars, each path's kernels
+    launched on every rank, and each rank's B3 (d, e) equal to one device's
+    dense-entry B3 on the band the grid gave it, bit for bit; then B3
+    against its plain version on that band, and B4 or B5 against theirs
+    on rank 0's operands (the chase's store, the rank's columns of z and
+    B4's phase budget).  Each run's peak a rank is printed beside the
+    single-device run's."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import bulge, wf_bt
+
+    ref_gen = gen_pair[2]
+    sx = np.loadtxt(os.path.join(tmp, f"sx_{N_B5}_pallas", "eigenvalues.dat"),
+                    ndmin=2)[:, 1]
+    # (tag, solver, k, n, seed, b_seed, env, single-device run, kernels)
+    runs = [("gen_new", "general_scalapacknew_eigens", None, N_GEN, 8, 9, {},
+             "gen_general_scalapacknew_eigens_float64", ("deflate",)),
+            ("gen_elpa2", "general_elpa2", None, N_GEN, 8, 9, {},
+             "gen_general_elpa2_float64", ("chase", "deflate")),
+            ("gen_select_2s", "general_scalapack_select", K_GEN, N_GEN, 8, 9,
+             {"EK_SELECT_CORE": "two_stage", "EK_BACKTRANSFORM": "wf_pallas"},
+             "gen_general_scalapack_select_float64",
+             ("chase", "sturm", "solve", "wf_bt")),
+            ("sx_pallas", "eigensx", None, N_B5, 6, None,
+             {"EK_BACKTRANSFORM": "pallas"}, f"sx_{N_B5}_pallas",
+             ("chase", "deflate", "chase_bt"))]
+    jobs = [run[:7] for run in runs]
+    out_dir = os.path.join(tmp, "mesh_gen")
+    os.makedirs(out_dir)
+    run_grid(4, "gloo", (2, 2), [str(dev)] * 4, jobs, out_dir)
+    out = {"checks": {"chase": [], "wf_bt": [], "chase_bt": []}}
+    for tag, _, _, n, _, b_seed, _, single, want in runs:
+        ref = np.loadtxt(os.path.join(tmp, single, "eigenvalues.dat"),
+                         ndmin=2)[:, 1]
+        norm2 = float(np.abs(ref_gen if b_seed is not None else sx).max())
+        res = report_grid(tag, 4, out_dir, ref, norm2, want)
+        print(f"  {tag}: one device's peak ({single}) "
+              f"{PEAK_GIB[single]:.2f} GiB")
+        out[tag] = [
+            {"launches": json.loads(str(r["launches"])),
+             "stages": json.loads(str(r["stages"])),
+             "seconds": float(r["seconds"]),
+             "peak_gib": float(r["peak"]) / 2**30,
+             "one_device_peak_gib": PEAK_GIB[single],
+             "collectives": int(r["stats"][0]),
+             "collective_s": float(r["stats"][1]),
+             "collective_mib": float(r["stats"][2]) / 2**20} for r in res]
+        if "chase" not in want:
+            continue
+        # B3 on every rank against one device's dense-entry B3 on the band
+        # the grid gave it, and that B3 against its plain version
+        bw = DEFAULT_BLOCK_SIZE
+        band = band_of_lower(res[0]["lower"], n, bw, dev)
+        lam_band = torch.linalg.eigvalsh(band).cpu().numpy()
+        one, row = compare_chase(band, bw, lam_band, f"f64 ({tag} grid band)",
+                                 reps=1, recon=False)
+        out["checks"]["chase"].append(dict(row, run=tag, n=n))
+        d, e = one.d.cpu().numpy(), one.e.cpu().numpy()
+        del one, band
+        for r, rk in enumerate(res):
+            check(np.array_equal(rk["lower"], res[0]["lower"]),
+                  f"{tag} rank {r}: the chase's banded state == rank 0's")
+            check(np.array_equal(rk["chase_d"], d)
+                  and np.array_equal(rk["chase_e"], e),
+                  f"{tag} rank {r}: B3 (d, e) == one device's dense-entry "
+                  f"B3 on the same band, bit for bit")
+        r0 = res[0]
+        if "bt_hv" in r0:
+            # B4 or B5 against its plain version on rank 0's operands
+            hv = torch.tensor(r0["bt_hv"], device=dev)
+            cres = bulge.ChaseResult(
+                torch.tensor(r0["chase_d"], device=dev),
+                torch.tensor(r0["chase_e"], device=dev), hv,
+                torch.tensor(r0["bt_ht"], device=dev), hv.shape[2])
+            z = torch.tensor(r0["bt_z"], device=dev)
+            label = f"{tag} rank 0 operands"
+            if "wf_bt" in want:
+                sb = int(r0["bt_stream_bytes"])
+                check(sb > 0, f"{tag}: B4 ran with the grid's phase budget")
+                row = compare_bt(
+                    f"apply_chase_q_wavefront ({label}, phases of "
+                    f"{sb} bytes)",
+                    lambda r_, z_: wf_bt.apply_chase_q_wavefront(
+                        r_, z_, stream_bytes=sb),
+                    lambda r_, z_: wf_bt.apply_chase_q_wavefront_plain(
+                        r_, z_, stream_bytes=sb), cres, z)
+                row.update(stream_bytes=sb, phases=wf_bt.plan(
+                    cres, z, 0, sb).nph)
+                out["checks"]["wf_bt"].append(dict(row, run=tag))
+            else:
+                out["checks"]["chase_bt"].append(dict(
+                    compare_chase_bt(cres, z, f" ({label})"), run=tag))
+            del hv, cres, z
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1772,13 +1953,56 @@ def mesh_every_card(jobs, out_dir, tmp, ref, norm2):
         check(resid <= 1e-12 and orth <= 1e-10,
               f"nccl {cards} cards: resid {resid:.3e} <= 1e-12, "
               f"orthogonality {orth:.3e} <= 1e-10")
+        # -s general_elpa2 on phase 11's A and B files, against phase 11
+        work = os.path.join(tmp, "mesh_cli_gen")
+        os.makedirs(work)
+        env_["EK_COORDINATOR"] = f"127.0.0.1:{free_port()}"
+        argv = [sys.executable, "-m", "eigenkernel_tpu_torch", "--mesh",
+                f"{shape[0]},{shape[1]}", "-s", "general_elpa2", "-c", "-1",
+                "-t", f"1,{N_GEN}", os.path.join(tmp, f"A{N_GEN}_8.mtx"),
+                os.path.join(tmp, f"B{N_GEN}_9.mtx")]
+        procs = [subprocess.Popen(argv, cwd=work,
+                                  env=dict(env_, EK_PROCESS_ID=str(i)),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for i in range(cards)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        print(outs[0])
+        check(all(p.returncode == 0 for p in procs),
+              f"the CLI general_elpa2 on {cards} processes exits 0 "
+              f"({[p.returncode for p in procs]})")
+        ev = np.loadtxt(os.path.join(work, "eigenvalues.dat"), ndmin=2)
+        single = np.loadtxt(os.path.join(tmp, "gen_general_elpa2_float64",
+                                         "eigenvalues.dat"), ndmin=2)[:, 1]
+        err = float(np.abs(ev[:, 1] - single).max())
+        norm2g = float(np.abs(single).max())
+        check(ev.shape == (N_GEN, 2) and err <= 1e-10 * norm2g,
+              f"nccl {cards} cards general_elpa2: |eig - single device| "
+              f"{err:.3e} <= 1e-10 * ||A||_2")
+        resid = _number(outs[0], "residual norm (max):")
+        orth = _number(outs[0], "orthogonality criterion:")
+        check(resid <= 1e-12 and orth <= 1e-10,
+              f"nccl {cards} cards general_elpa2: resid {resid:.3e} <= "
+              f"1e-12, orthogonality {orth:.3e} <= 1e-10")
     print(f"NCCL on {cards} card(s), a {shape[0]} x {shape[1]} grid: "
           f"{time.time() - t0:.1f} s")
     return f"{shape[0]} x {shape[1]}"
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+
+    cards_only = argv == ["--cards"]
+    if argv and not cards_only:
+        print(f"chip_smoke: unknown arguments {argv} (none, or --cards)",
+              file=sys.stderr)
+        return 2
 
     # phase 1: card
     if not torch.cuda.is_available():
@@ -1805,6 +2029,18 @@ def main() -> int:
     for line in build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip())
+    if cards_only:
+        # the NCCL runs of phase 13 on every card, with the single-device
+        # runs of phases 4 and 11 they are held against
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_main(dev, tmp)
+            phase_generalized(dev, tmp)
+            t0 = time.time()
+            nccl = phase_mesh(dev, tmp, cards_only=True)["nccl"]
+            print(f"process grid, NCCL on every card: "
+                  f"{time.time() - t0:.1f} s")
+        print(json.dumps({"cards": torch.cuda.device_count(), **nccl}))
+        return 0
     # the latency of one step of each serial recurrence (D1's bound)
     from eigenkernel_tpu_torch.tools import div_chain
 
@@ -1853,6 +2089,10 @@ def main() -> int:
         t0 = time.time()
         mesh_out = phase_mesh(dev, tmp)
         print(f"process grid: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        mesh_gen = phase_mesh_gen(dev, tmp, gen_pair)
+        print(f"process grid, generalized and two-stage: "
+              f"{time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
@@ -1861,6 +2101,15 @@ def main() -> int:
     by_rank = {key: [r["launches"][key] for r in mesh_out["gloo_2x2"][tag]]
                for key, tag in (("sturm", "select"), ("solve", "select"),
                                 ("deflate", "scalapack"))}
+    # and of phase 14's: B3 (general_elpa2), B4 and B1/B2 (the two-stage
+    # general_scalapack_select), B5 (eigensx under EK_BACKTRANSFORM=pallas)
+    by_rank_gen = {key: [r["launches"][key] for r in mesh_gen[tag]]
+                   for key, tag in (("chase", "gen_elpa2"),
+                                    ("wf_bt", "gen_select_2s"),
+                                    ("sturm", "gen_select_2s"),
+                                    ("solve", "gen_select_2s"),
+                                    ("chase_bt", "sx_pallas"),
+                                    ("deflate", "gen_elpa2"))}
 
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
     # n = 4096, k = 500 (and on the n = 16384 path's operands under
@@ -1921,6 +2170,10 @@ def main() -> int:
                            else [])})
         if key in by_rank:
             entries[-1]["mesh_launches_by_rank"] = by_rank[key]
+        entries[-1]["mesh_gen_launches_by_rank"] = by_rank_gen[key]
+        # phase 14: the kernel against its plain version on the grid's
+        # operands (B3 on each run's band, B4 and B5 on rank 0's)
+        entries[-1]["mesh_gen_checks"] = mesh_gen["checks"].get(key, [])
     # D1: the six levels of one float64 tridiag_dc at n = 4096 on the
     # scalapack path's operands; not a TPU kernel (it replaces the
     # deflation lax.scans of the JAX function)
@@ -1939,7 +2192,8 @@ def main() -> int:
                                     dc_out["profile_f32"],
                                     {"launches_generalized":
                                      launches_gen["deflate"]}],
-                    "mesh_launches_by_rank": by_rank["deflate"]})
+                    "mesh_launches_by_rank": by_rank["deflate"],
+                    "mesh_gen_launches_by_rank": by_rank_gen["deflate"]})
     # D2: the float64 jacobi path's first-round pair blocks (dense, the
     # most sweeps); not a TPU kernel (it replaces the library eigh of the
     # pair blocks in the JAX function)
@@ -1969,4 +2223,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,10 +19,11 @@ process in one ``torch.distributed`` group (NCCL on the card, a card
 each; gloo with ``--platform cpu``), on an R x C grid (``--mesh R,C``,
 default the near-square layout).  Process 0 probes the header and reads
 the COO triplets, broadcasts them, and each process densifies its own
-block; eigenvalues.dat, ipratios.dat and log.json come from process 0,
-the eigenvector files from every process in turn.  On a grid only the
-one-stage core runs (``scalapack``, ``scalapack_select``, ``lapack``
-replicated, ``auto``); every other name prints ``[Error] ...``.
+block (of A, and of B for a generalized problem); eigenvalues.dat,
+ipratios.dat and log.json come from process 0, the eigenvector files from
+every process in turn.  On a grid every name runs but ``jacobi``,
+``qdwh_dc``, ``general_jacobi`` and ``general_qdwh_dc``, and ``--dtype
+mixed``, which print ``[Error] ...``.
 ``--profile <dir>`` traces the solve with ``torch.profiler`` into
 ``<dir>/trace_rank<r>.json``.
 """
@@ -254,9 +255,13 @@ def _main(arg, argv, t_start) -> int:
     grid = pm.make_mesh(arg.mesh_shape, device) if n_proc > 1 else None
     mat_a = mh.bcast_coo(mat_a, arg.matrix_A_info.rows,
                          arg.matrix_A_info.entries)
+    if arg.is_generalized_problem:
+        mat_b = mh.bcast_coo(mat_b, arg.matrix_B_info.rows,
+                             arg.matrix_B_info.entries)
     if grid is not None:
         a_mat = pm.distribute_coo(mat_a, grid, dtype)
-        b_mat = None               # no generalized name runs on a grid
+        b_mat = None if mat_b is None else \
+            pm.distribute_coo(mat_b, grid, dtype)
     else:
         a_mat = torch.from_numpy(mat_a.to_dense()).to(device=device,
                                                       dtype=dtype)

@@ -17,24 +17,44 @@ JAX package's bucketed recursion ``_to_band_rec``, ``EK_TOBAND_SPLIT`` and
 ``EK_QR_PANEL`` exist for XLA shapes and a TPU A/B; eager PyTorch needs
 none of them.)  The GEMMs are ``torch.matmul`` (cuBLAS on the card), as the
 JAX package leaves them to XLA.
+
+On a process grid (``mesh=``, ``a`` a
+:class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix`; JAX
+``ops/band.py:116-190``) each panel's (m - bw, bw) block below the band
+is gathered whole onto every rank by one ``all_reduce`` and QR-factored
+there; ``A V`` is the blocks' product summed into one zero-padded
+``all_reduce`` of (m, bw) (``parallel.mesh.times_tall``); ``u`` is formed
+on every rank, and each rank applies the rank-2b update to its own block,
+in the form ``A[s:, s:] -= U Vf^T + Vf U^T`` with ``Vf = [0; V2]`` (the
+three updates of the single-device loop in one).  Two collectives a
+panel.  The reflectors are kept by WY group, one rank each
+(``householder.GridReflectors``), and the band leaves the grid only as
+its banded lower storage (:func:`banded_lower`), O(n bw) words summed
+from each rank's diagonals: the replicated state the chase starts from.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
-from eigenkernel_tpu_torch.ops.householder import (_householder, apply_wy,
-                                                   wy_t_factor)
+from eigenkernel_tpu_torch.ops.householder import (GridReflectors,
+                                                   _householder, apply_wy,
+                                                   apply_wy_grid,
+                                                   wy_groups, wy_t_factor)
+from eigenkernel_tpu_torch.parallel import mesh as pm
 
 
 class BandResult(NamedTuple):
     band: Optional[torch.Tensor]  # (n, n) band matrix; None once the chase
-                                  # has read it
-    V: torch.Tensor     # (n, n) reflectors; column s+j pivots at row s+bw+j
+                                  # has read it (None on a grid)
+    V: Any              # (n, n) reflectors; column s+j pivots at row s+bw+j
+    #                     (a GridReflectors on a process grid)
     taus: torch.Tensor  # (n,)   reflector coefficients (0 => identity)
     bw: int
+    lower: Optional[torch.Tensor] = None  # on a grid: the band's banded
+    #                     lower storage (n + 2bw, 2bw + 1), every rank
 
 
 def _qr_panel(p: torch.Tensor):
@@ -57,13 +77,16 @@ def _qr_panel(p: torch.Tensor):
     return V, taus
 
 
-def to_band(a: torch.Tensor, bw: int) -> BandResult:
+def to_band(a, bw: int, mesh: Optional[pm.ProcessGrid] = None) -> BandResult:
     """Reduce symmetric ``a`` to a band matrix ``Q^T A Q`` of semibandwidth
-    ``bw``.  ``a`` is not modified."""
-    n = a.shape[0]
-    dtype, dev = a.dtype, a.device
+    ``bw``.  ``a`` is not modified.  With ``mesh``, ``a`` is a DistMatrix
+    and the result carries the band as ``lower`` (module doc)."""
     if bw < 1:
         raise ValueError(f"to_band: bandwidth must be >= 1, got {bw}")
+    if mesh is not None:
+        return _to_band_grid(a, bw, mesh)
+    n = a.shape[0]
+    dtype, dev = a.dtype, a.device
     A = a.clone()
     V = torch.zeros((n, n), dtype=dtype, device=dev)
     taus = torch.zeros(n, dtype=dtype, device=dev)
@@ -92,10 +115,79 @@ def to_band(a: torch.Tensor, bw: int) -> BandResult:
     return BandResult(band=band, V=V, taus=taus, bw=bw)
 
 
-def apply_band_q(res: BandResult, z: torch.Tensor,
-                 block: int = 64) -> torch.Tensor:
+def _to_band_grid(a: pm.DistMatrix, bw: int,
+                  grid: pm.ProcessGrid) -> BandResult:
+    """The loop of :func:`to_band` on plain blocks (module doc)."""
+    if a.grid is not grid:
+        raise ValueError("to_band: the matrix is on another grid")
+    A = a.local.clone()
+    x = a.with_local(A)
+    n = a.n_m
+    dtype, dev = A.dtype, A.device
+    taus = torch.zeros(n, dtype=dtype, device=dev)
+    groups = wy_groups(n, bw, grid.size)
+    mine = {i: torch.zeros((n - gs, w), dtype=dtype, device=dev)
+            for i, (gs, w) in enumerate(groups) if i % grid.size == grid.rank}
+    gb = groups[0][1]                      # a multiple of bw
+    for s in range(0, max(n - bw, 0), bw):
+        m = n - s
+        V2, tp = _qr_panel(pm.gather_block(x, s + bw, n, s, s + bw))
+        t = wy_t_factor(V2, tp)
+        av = pm.times_tall(x, V2, (s, n), (s + bw, n))      # A V, (m, bw)
+        u = av @ t
+        u[bw:] -= 0.5 * (V2 @ (t.T @ (V2.T @ av[bw:]) @ t))
+        a0, a1 = x.rows(s, n)
+        b0, b1 = x.cols(s, n)
+        if a1 > a0 and b1 > b0:
+            vf = torch.zeros_like(u)
+            vf[bw:] = V2
+            uv = torch.cat([u, vf], dim=1)
+            vu = torch.cat([vf, u], dim=1)
+            A[a0:a1, b0:b1].addmm_(uv[x.row0 + a0 - s:x.row0 + a1 - s],
+                                   vu[x.col0 + b0 - s:x.col0 + b1 - s].T,
+                                   alpha=-1.0)
+        i = s // gb
+        if i in mine:
+            gs = groups[i][0]
+            mine[i][s + bw - gs:, s - gs:s - gs + bw] = V2
+        taus[s:s + bw] = tp
+    return BandResult(band=None, V=GridReflectors(groups, mine), taus=taus,
+                      bw=bw, lower=banded_lower(x, bw))
+
+
+def banded_lower(x: pm.DistMatrix, bw: int) -> torch.Tensor:
+    """The banded lower storage ``lb[i, q] = band[i, i + q - 2bw]`` (n_m +
+    2bw rows, the chase's state, ``bulge._to_banded``) of the band of
+    ``x``, ``band = (A + A^T) / 2`` on |i - j| <= bw, whole on every rank:
+    each rank adds half of each entry of its block's 2bw + 1 diagonals at
+    the entry's place and at its mirror's, and one ``all_reduce`` sums
+    them (each sum has two nonzero halves, so it is exact in any order
+    and equal to the single-device ``(A + A^T) * 0.5``)."""
+    n = x.n_m
+    blk = x.local
+    lb = blk.new_zeros((n + 2 * bw, 2 * bw + 1))
+    nr, nc = blk.shape
+    for off in range(-bw, bw + 1):          # off = j - i
+        k = off + x.row0 - x.col0           # the block diagonal holding it
+        if not -nr < k < nc:
+            continue
+        half = torch.diagonal(blk, k) * 0.5
+        i = x.row0 + max(0, -k) + torch.arange(half.shape[0],
+                                               device=blk.device)
+        if off <= 0:                        # (i, j) in the lower half
+            lb[i, off + 2 * bw] += half
+        if off >= 0:                        # its mirror (j, i)
+            lb[i + off, 2 * bw - off] += half
+    return pm.all_reduce(lb, x.grid)
+
+
+def apply_band_q(res: BandResult, z: torch.Tensor, block: int = 64,
+                 mesh: Optional[pm.ProcessGrid] = None) -> torch.Tensor:
     """``z <- Q z`` with Q the stage-1 band-reduction transform: groups of
     panels as compact-WY products, last to first (see
-    :func:`eigenkernel_tpu_torch.ops.householder.apply_wy`).  Returns a new
-    tensor."""
+    :func:`eigenkernel_tpu_torch.ops.householder.apply_wy`); on a grid
+    ``z`` is a rank's own columns and each group is broadcast from its
+    rank in turn.  Returns a new tensor."""
+    if mesh is not None:
+        return apply_wy_grid(res.V, res.taus, z, mesh)
     return apply_wy(res.V, res.taus, z, block)

@@ -18,9 +18,11 @@ in :mod:`.chase` (kernel B3), the back-transforms in :mod:`.wf_bt` (B4) and
 :mod:`.backtransform` (B5); :func:`apply_chase_q_blocked` is the WY-grouped
 back-transform (``EK_BACKTRANSFORM=blocked``) and the model of B5's block
 order.  The sequential chase is not ported: the tests hold the wavefront
-chase against the JAX package's.  The mesh paths
-(``band_to_tridiag_chunked``, ``apply_chase_q_blocked_sharded``) and the
-XLA wavefront schedules are not ported.
+chase against the JAX package's.  On a process grid every rank runs the
+chase on the replicated banded state; :func:`shard_chase_store` then
+keeps a rank's own WY groups and :func:`apply_chase_q_blocked_sharded`
+broadcasts them in turn.  ``band_to_tridiag_chunked`` (``EK_CHASE_CHUNKS``)
+and the XLA wavefront schedules are not ported.
 """
 
 from __future__ import annotations
@@ -117,6 +119,73 @@ def _wy_embed(hv_desc: torch.Tensor, g: int, b: int, L: int) -> torch.Tensor:
     return torch.where(valid, y, torch.zeros((), dtype=y.dtype, device=dev))
 
 
+def _group_size(group: int, b: int) -> int:
+    """g of the WY-grouped back-transform: ``group`` (0 for 32, the JAX
+    package's value off the TPU), clamped to b (g > b would make windows
+    two positions apart overlap)."""
+    return min(group if group > 0 else 32, b)
+
+
+class _Frame(NamedTuple):
+    zp: torch.Tensor    # z with zero rows around it
+    top: int            # z's first row in zp
+    n: int
+    T: int
+    b: int
+    g: int
+
+
+def _frame(z: torch.Tensor, T: int, b: int, g: int) -> _Frame:
+    """z in a frame of zero rows: g + 1 above (the oldest group's windows
+    start there) and b + g - 1 below (a window that starts inside z).
+    Rows past z stay zero (the reflectors vanish there), so a window that
+    starts past z is the identity and is skipped."""
+    n = z.shape[0]
+    top = g + 1
+    zp = z.new_zeros((top + n + b + g - 1, z.shape[1]))
+    zp[top:top + n] = z
+    return _Frame(zp, top, n, T, b, g)
+
+
+def _apply_group(fr: _Frame, G: int, hv_desc: torch.Tensor,
+                 ht_desc: torch.Tensor) -> None:
+    """Group ``G``'s sweeps ``c0-g+1 .. c0`` (c0 = n-3-G*g), given newest
+    first as ``hv_desc`` (g, T, b) and ``ht_desc`` (g, T), applied to the
+    frame at every band position in ascending t."""
+    g, b = fr.g, fr.b
+    L = b + g - 1
+    c0 = fr.n - 3 - G * g
+    for t in range(fr.T):
+        row0 = c0 - g + 2 + t * b + fr.top
+        if row0 >= fr.top + fr.n:
+            break
+        Y = _wy_embed(hv_desc[:, t], g, b, L)                 # (L, g)
+        ht = ht_desc[:, t]
+        tau_safe = torch.where(ht == 0, 1.0, ht)
+        M = torch.tril(Y.T @ Y, -1) + torch.diag(1.0 / tau_safe)
+        zw = fr.zp[row0:row0 + L]
+        w2 = torch.linalg.solve_triangular(M, Y.T @ zw, upper=False)
+        zw -= Y @ w2
+
+
+def _group_slab(HV: torch.Tensor, HT: torch.Tensor, n: int, g: int, G: int):
+    """Group ``G``'s reflectors newest first, (g, T, b) and (g, T); sweeps
+    before 0 are zero reflectors (exact identities)."""
+    c0 = n - 3 - G * g
+    lo = c0 - g + 1
+    hv = HV[max(lo, 0):c0 + 1]
+    ht = HT[max(lo, 0):c0 + 1]
+    if lo < 0:
+        hv = torch.cat([hv.new_zeros((-lo,) + tuple(hv.shape[1:])), hv])
+        ht = torch.cat([ht.new_zeros((-lo,) + tuple(ht.shape[1:])), ht])
+    return hv.flip(0), ht.flip(0)
+
+
+def n_chase_groups(n: int, g: int) -> int:
+    """The WY groups of g sweeps of a chase of n rows (n - 2 sweeps)."""
+    return -(-(n - 2) // g)
+
+
 def apply_chase_q_blocked(res: ChaseResult, z: torch.Tensor,
                           group: int = 0) -> torch.Tensor:
     """``z <- Q2 z`` with g consecutive sweeps WY-grouped (ELPA2's trick).
@@ -137,31 +206,62 @@ def apply_chase_q_blocked(res: ChaseResult, z: torch.Tensor,
     T, b = res.HV.shape[1], res.HV.shape[2]
     if n <= 2 or b <= 1 or res.HV.shape[0] < n:
         return z.clone()
-    g = min(group if group > 0 else 32, b)
-    nsweeps = n - 2
-    n_groups = -(-nsweeps // g)
-    L = b + g - 1
-    # pad the sweep axis in front so the oldest group's slice start is
-    # always valid (zero reflectors are identities)
-    HVp = torch.cat([res.HV.new_zeros((g, T, b)), res.HV[:n]])
-    HTp = torch.cat([res.HT.new_zeros((g, T)), res.HT[:n]])
-    top = g + 1
-    zp = z.new_zeros((n + top + (T + 2) * b + g, k))
-    zp[top:top + n] = z
-    for s in range(n_groups * T):
-        G, t = divmod(s, T)
-        c0 = nsweeps - 1 - G * g
-        # sweeps c0-g+1 .. c0 at position t, newest (c0) first
-        hv_desc = HVp[c0 + 1:c0 + 1 + g, t].flip(0)
-        ht_desc = HTp[c0 + 1:c0 + 1 + g, t].flip(0)
-        Y = _wy_embed(hv_desc, g, b, L)                       # (L, g)
-        tau_safe = torch.where(ht_desc == 0, 1.0, ht_desc)
-        M = torch.tril(Y.T @ Y, -1) + torch.diag(1.0 / tau_safe)
-        row0 = c0 - g + 2 + t * b + top
-        zw = zp[row0:row0 + L]
-        w2 = torch.linalg.solve_triangular(M, Y.T @ zw, upper=False)
-        zw -= Y @ w2
-    return zp[top:top + n].clone()
+    g = _group_size(group, b)
+    fr = _frame(z, T, b, g)
+    for G in range(n_chase_groups(n, g)):
+        _apply_group(fr, G, *_group_slab(res.HV, res.HT, n, g, G))
+    return fr.zp[fr.top:fr.top + n].clone()
+
+
+class GridChaseStore(NamedTuple):
+    """The chase reflectors on a process grid, sweep-sharded: WY group G
+    of g sweeps (newest first, as :func:`apply_chase_q_blocked` takes
+    them) lives on rank G mod P alone, as ``mine[G]`` = (g, T, b + 1), the
+    taus in the last column."""
+
+    g: int
+    n_groups: int
+    T: int
+    b: int
+    mine: dict
+
+
+def shard_chase_store(res: ChaseResult, group: int, grid) -> ChaseResult:
+    """Keep this rank's WY groups of the chase store and drop the rest
+    (the JAX package's ``_shard_chase_store``, ``ops/bulge.py:138-158``):
+    ``HV`` becomes a :class:`GridChaseStore`, ``HT`` None."""
+    n, T, b = res.HV.shape
+    g = _group_size(group, b)
+    nG = n_chase_groups(n, g)
+    mine = {}
+    for G in range(grid.rank, nG, grid.size):
+        hv, ht = _group_slab(res.HV, res.HT, n, g, G)
+        mine[G] = torch.cat([hv, ht[..., None]], dim=2)
+    return res._replace(HV=GridChaseStore(g, nG, T, b, mine), HT=None)
+
+
+def apply_chase_q_blocked_sharded(res: ChaseResult, z: torch.Tensor,
+                                  grid) -> torch.Tensor:
+    """:func:`apply_chase_q_blocked` on a grid (JAX
+    ``apply_chase_q_blocked_sharded``, ``ops/bulge.py:683-781``): ``z`` is
+    this rank's own columns, whole rows, so every window update is local;
+    each group's (g, T, b + 1) slab is broadcast once by its rank, newest
+    group first, and applied.  A rank holds its own groups and one slab
+    more."""
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    st = res.HV
+    n = z.shape[0]
+    if n <= 2 or st.b <= 1:
+        return z.clone()
+    fr = _frame(z, st.T, st.b, st.g)
+    for G in range(st.n_groups):
+        slab = st.mine.get(G)
+        if slab is None:
+            slab = z.new_empty((st.g, st.T, st.b + 1))
+        pm.broadcast(slab, grid, G % grid.size)
+        _apply_group(fr, G, slab[..., :st.b], slab[..., st.b])
+    return fr.zp[fr.top:fr.top + n].clone()
 
 
 def group_stores(res: ChaseResult, n: int, b: int, g: int):

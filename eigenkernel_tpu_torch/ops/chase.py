@@ -195,18 +195,37 @@ def _check(band: torch.Tensor) -> None:
                          f"{tuple(band.shape)}")
 
 
-def _state(band: torch.Tensor, b: int):
-    """The chase state ``lb`` and zeroed reflector stores."""
+def lower_storage(band: torch.Tensor, b: int) -> torch.Tensor:
+    """The chase state ``lb`` (n + 2b, 2b + 1) of a dense band matrix."""
     n = band.shape[0]
-    T = n_positions(n, b)
     lb = band.new_zeros((n + 2 * b, 2 * b + 1))
     lb[:n] = _to_banded(band, b)
-    return lb, band.new_zeros((n, T, b)), band.new_zeros((n, T))
+    return lb
+
+
+def _check_lower(lb: torch.Tensor, n: int, bw: int) -> None:
+    if lb.dtype not in _FN:
+        raise TypeError(f"banded_to_tridiag: dtype {lb.dtype} not "
+                        f"float32/float64")
+    if tuple(lb.shape) != (n + 2 * bw, 2 * bw + 1):
+        raise ValueError(f"banded_to_tridiag: storage of shape "
+                         f"{tuple(lb.shape)}, expected "
+                         f"{(n + 2 * bw, 2 * bw + 1)}")
 
 
 def _result(lb, hv, ht, n: int, b: int) -> ChaseResult:
     return ChaseResult(d=lb[:n, 2 * b].clone(), e=lb[1:n, 2 * b - 1].clone(),
                        HV=hv, HT=ht, bw=b)
+
+
+def _trivial_lower(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
+    """The chase of n <= 2 or bw <= 1 from the storage (as
+    :func:`trivial_chase`)."""
+    e = lb[1:n, 2 * bw - 1].clone() if bw >= 1 else \
+        lb.new_zeros(max(n - 1, 0))
+    return ChaseResult(lb[:n, 2 * bw].clone(), e,
+                       lb.new_zeros((n, 1, max(bw, 1))), lb.new_zeros((n, 1)),
+                       bw)
 
 
 def band_to_tridiag_plain(band: torch.Tensor, bw: int) -> ChaseResult:
@@ -215,7 +234,18 @@ def band_to_tridiag_plain(band: torch.Tensor, bw: int) -> ChaseResult:
     n = band.shape[0]
     if n <= 2 or bw <= 1:
         return trivial_chase(band, bw)
-    lb, hv, ht = _state(band, bw)
+    return banded_to_tridiag_plain(lower_storage(band, bw), n, bw)
+
+
+def banded_to_tridiag_plain(lb: torch.Tensor, n: int,
+                            bw: int) -> ChaseResult:
+    """:func:`banded_to_tridiag` by the plain version, on any device."""
+    _check_lower(lb, n, bw)
+    if n <= 2 or bw <= 1:
+        return _trivial_lower(lb, n, bw)
+    lb = lb.clone()
+    T = n_positions(n, bw)
+    hv, ht = lb.new_zeros((n, T, bw)), lb.new_zeros((n, T))
     chase_plain(lb, hv, ht, n, bw)
     return _result(lb, hv, ht, n, bw)
 
@@ -224,28 +254,45 @@ def band_to_tridiag(band: torch.Tensor, bw: int) -> ChaseResult:
     """Reduce a symmetric band matrix (semibandwidth ``bw``, dense storage)
     to tridiagonal.  A CUDA tensor runs the CUDA kernel, a CPU tensor the
     plain version."""
-    global LAUNCHES, BRANCH, GRID
     _check(band)
-    if band.device.type == "cpu":
-        return band_to_tridiag_plain(band, bw)
-    if band.device.type != "cuda":
-        raise ValueError(f"band_to_tridiag: unsupported device {band.device}")
     n = band.shape[0]
+    if band.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"band_to_tridiag: unsupported device {band.device}")
     if n <= 2 or bw <= 1:
         return trivial_chase(band, bw)
-    lb, hv, ht = _state(band, bw)
+    return banded_to_tridiag(lower_storage(band, bw), n, bw)
+
+
+def banded_to_tridiag(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
+    """:func:`band_to_tridiag` of the band held as its banded lower storage
+    ``lb`` (n + 2bw, 2bw + 1), ``lb[i, q] = band[i, i + q - 2bw]`` (zero
+    rows past n), the entry a process grid's chase takes
+    (``band.banded_lower``): the same state, so the same steps bit for
+    bit.  ``lb`` is not modified."""
+    global LAUNCHES, BRANCH, GRID
+    _check_lower(lb, n, bw)
+    if lb.device.type == "cpu":
+        return banded_to_tridiag_plain(lb, n, bw)
+    if lb.device.type != "cuda":
+        raise ValueError(f"banded_to_tridiag: unsupported device "
+                         f"{lb.device}")
+    if n <= 2 or bw <= 1:
+        return _trivial_lower(lb, n, bw)
+    lb = lb.contiguous().clone()
+    T = n_positions(n, bw)
+    hv, ht = lb.new_zeros((n, T, bw)), lb.new_zeros((n, T))
     lib = build.library()
-    name = _FN[band.dtype]
-    br = branch(bw, band.dtype)
+    name = _FN[lb.dtype]
+    br = branch(bw, lb.dtype)
     resident = ctypes.c_int(0)
-    build.check(getattr(lib, _RESIDENT[band.dtype])(
+    build.check(getattr(lib, _RESIDENT[lb.dtype])(
         bw, int(br == "window"), ctypes.byref(resident)), name)
     if resident.value < 1:
         raise build.KernelLaunchError(f"{name}: no block of the {br} branch "
-                                      f"fits on {band.device}")
+                                      f"fits on {lb.device}")
     grid = grid_size(n, bw, resident.value, GRID_CAP)
-    bar = torch.zeros(1, dtype=torch.int32, device=band.device)
-    stream = torch.cuda.current_stream(band.device).cuda_stream
+    bar = torch.zeros(1, dtype=torch.int32, device=lb.device)
+    stream = torch.cuda.current_stream(lb.device).cuda_stream
     status = getattr(lib, name)(lb.data_ptr(), hv.data_ptr(), ht.data_ptr(),
                                 bar.data_ptr(), n, bw, hv.shape[1],
                                 int(br == "window"), grid, stream)

@@ -62,12 +62,15 @@ class GridReflectors(NamedTuple):
     mine: dict          # group index -> this rank's (n - s, w) block
 
 
-def wy_groups(n: int, block: int) -> list:
+def wy_groups(n: int, block: int, parts: int = 1) -> list:
     """The (start, width) of the compact-WY groups of ``apply_wy``: panels
     of ``block`` columns, ``512 // block`` of them a group (512 columns,
-    as the JAX package's default ``EK_ORMTR_GROUP``)."""
+    as the JAX package's default ``EK_ORMTR_GROUP``), and no more than
+    1/``parts`` of the panels (so that on a grid of that many ranks a
+    group, which one rank holds, is not the whole of V)."""
     b = max(1, min(block, n))
-    gb = max(1, 512 // b) * b
+    panels = -(-n // b)
+    gb = max(1, min(512 // b, -(-panels // parts))) * b
     return [(s, min(gb, n - s)) for s in range(0, n, gb)]
 
 
@@ -262,14 +265,21 @@ def apply_q(tri: TridiagResult, z: torch.Tensor, block: int = 64,
     from the rank that holds it and applied to them, last to first."""
     if mesh is None:
         return apply_wy(tri.V, tri.taus, z, block)
+    return apply_wy_grid(tri.V, tri.taus, z, mesh)
+
+
+def apply_wy_grid(refl: GridReflectors, taus: torch.Tensor, z: torch.Tensor,
+                  mesh: pm.ProcessGrid) -> torch.Tensor:
+    """:func:`apply_wy` on a grid: ``z`` a rank's own columns, whole; each
+    WY group broadcast from the rank that holds it, last to first."""
     z = z.clone()
     n = z.shape[0]
-    for i, (s, w) in reversed(list(enumerate(tri.V.groups))):
-        v = tri.V.mine.get(i)
+    for i, (s, w) in reversed(list(enumerate(refl.groups))):
+        v = refl.mine.get(i)
         if v is None:
             v = torch.empty((n - s, w), dtype=z.dtype, device=z.device)
         pm.broadcast(v, mesh, i % mesh.size)
-        t = wy_t_factor(v, tri.taus[s:s + w])
+        t = wy_t_factor(v, taus[s:s + w])
         zs = z[s:]
         zs -= v @ (t @ (v.T @ zs))
     return z

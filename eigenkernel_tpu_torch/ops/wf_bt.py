@@ -138,15 +138,17 @@ class Plan(NamedTuple):
     rows: int
 
 
-def plan(res: ChaseResult, z: torch.Tensor, group: int = 0) -> Plan:
+def plan(res: ChaseResult, z: torch.Tensor, group: int = 0,
+         stream_bytes: int = 0) -> Plan:
     """The :class:`Plan` for ``z <- Q2 z`` (module doc for g and m); each
-    phase holds at most :data:`STREAM_BYTES` of the P stream, or one
-    composite step where that is larger."""
+    phase holds at most ``stream_bytes`` (0 for :data:`STREAM_BYTES`) of
+    the P stream, or one composite step where that is larger."""
     return plan_of(z.shape[0], res.HV.shape[2], res.HV.shape[1],
-                   z.element_size(), group)
+                   z.element_size(), group, stream_bytes)
 
 
-def plan_of(n: int, b: int, T: int, itemsize: int, group: int = 0) -> Plan:
+def plan_of(n: int, b: int, T: int, itemsize: int, group: int = 0,
+            stream_bytes: int = 0) -> Plan:
     """:func:`plan` from the shapes: n rows of z, bandwidth b, T band
     positions, ``itemsize`` bytes a word."""
     nsweeps = n - 2
@@ -157,12 +159,21 @@ def plan_of(n: int, b: int, T: int, itemsize: int, group: int = 0) -> Plan:
     S2 = g + m * b
     Tm = -(-T // m)
     Tq2 = Tm + nG - 1
-    nph = max(1, -(-Tq2 * nG * S2 * S2 * itemsize // STREAM_BYTES))
+    nph = max(1, -(-Tq2 * nG * S2 * S2 * itemsize
+                   // (stream_bytes or STREAM_BYTES)))
     tc = -(-Tq2 // min(nph, Tq2))      # at least one composite step a phase
     nph = -(-Tq2 // tc)
     # live windows start at frame rows >= 2 and end before top + n + S2
     top = g
     return Plan(n, b, g, m, nG, Tm, Tq2, nph, tc, top, top + n + S2)
+
+
+def grid_stream_bytes(n: int, itemsize: int, parts: int) -> int:
+    """The phase budget on a grid of ``parts`` ranks, each of which builds
+    the whole P stream: :data:`STREAM_BYTES`, at most the bytes of an
+    n x n matrix, shared by the ranks, so a rank's phase holds at most
+    n^2 / parts words (or one composite step, where that is larger)."""
+    return max(1, min(STREAM_BYTES, n * n * itemsize) // parts)
 
 
 def stream_phases(res: ChaseResult, pl: Plan):
@@ -241,8 +252,8 @@ def frame(z: torch.Tensor, pl: Plan) -> torch.Tensor:
     return zp
 
 
-def _wavefront(res: ChaseResult, z: torch.Tensor, group: int,
-               apply) -> torch.Tensor:
+def _wavefront(res: ChaseResult, z: torch.Tensor, group: int, apply,
+               stream_bytes: int = 0) -> torch.Tensor:
     n, k = z.shape
     if z.dtype not in _FN or res.HV.dtype != z.dtype:
         raise TypeError(f"apply_chase_q_wavefront: z {z.dtype} and the "
@@ -256,7 +267,7 @@ def _wavefront(res: ChaseResult, z: torch.Tensor, group: int,
                          f"{z.device}")
     if n <= 2 or res.HV.shape[2] < 2 or res.HV.shape[0] < n or k == 0:
         return z.clone()
-    pl = plan(res, z, group)
+    pl = plan(res, z, group, stream_bytes)
     zp = frame(z, pl)
     for P, u0 in stream_phases(res, pl):
         apply(P, zp, pl, u0)
@@ -265,16 +276,20 @@ def _wavefront(res: ChaseResult, z: torch.Tensor, group: int,
 
 
 def apply_chase_q_wavefront_plain(res: ChaseResult, z: torch.Tensor,
-                                  group: int = 0) -> torch.Tensor:
+                                  group: int = 0,
+                                  stream_bytes: int = 0) -> torch.Tensor:
     """:func:`apply_chase_q_wavefront` by the plain version, on any
-    device."""
-    return _wavefront(res, z, group, apply_phase_plain)
+    device, in the same phases."""
+    return _wavefront(res, z, group, apply_phase_plain, stream_bytes)
 
 
 def apply_chase_q_wavefront(res: ChaseResult, z: torch.Tensor,
-                            group: int = 0) -> torch.Tensor:
+                            group: int = 0,
+                            stream_bytes: int = 0) -> torch.Tensor:
     """``z <- Q2 z`` on the composite group wavefront (module doc).
 
-    ``group`` (else ``EK_BT_GROUP``, else 64) is g.  A CUDA tensor runs the
-    CUDA kernel, a CPU tensor the plain version.  Returns a new tensor."""
-    return _wavefront(res, z, group, apply_phase)
+    ``group`` (else ``EK_BT_GROUP``, else 64) is g; ``stream_bytes`` the
+    byte budget of a phase of the P stream (0 for :data:`STREAM_BYTES`).
+    A CUDA tensor runs the CUDA kernel, a CPU tensor the plain version.
+    Returns a new tensor."""
+    return _wavefront(res, z, group, apply_phase, stream_bytes)

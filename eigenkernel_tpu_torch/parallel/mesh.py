@@ -18,6 +18,12 @@ Counterpart of ``eigenkernel_tpu/parallel/mesh.py``:
   (i, j) and (j, i) set per entry; no rank builds the dense matrix.
 * ``gather``        <- ``mesh.py:156-159``.
 * ``print_grid_mapping`` <- ``mesh.py:162-172``, the same text.
+* ``matmul``, ``times_tall`` and ``transpose``: the sharded products that
+  GSPMD partitions for the JAX package (``ops/blocked.py:39-43``'s
+  ``_wsc`` products), written out: SUMMA on plain blocks (each k-panel
+  broadcast along the process rows and columns), a block times a
+  replicated tall operand summed into one zero-padded ``all_reduce``, and
+  a transpose by per-rank broadcasts.
 
 Every sharded step is written on ``all_reduce`` and ``broadcast`` alone:
 torch's backend table documents gloo as taking CUDA tensors for those two
@@ -165,10 +171,13 @@ def all_reduce(x: torch.Tensor, grid: ProcessGrid, op: str = "sum",
     return x
 
 
-def broadcast(x: torch.Tensor, grid: ProcessGrid, src: int) -> torch.Tensor:
-    """In-place ``broadcast`` of ``x`` from grid rank ``src``; returns x."""
+def broadcast(x: torch.Tensor, grid: ProcessGrid, src: int,
+              over: str = "world") -> torch.Tensor:
+    """In-place ``broadcast`` of ``x`` from grid rank ``src`` to the grid
+    ("world"), or to ``src``'s and this rank's process row ("row") or
+    column ("col"); returns x."""
     t0 = time.perf_counter()
-    dist.broadcast(x, src)
+    dist.broadcast(x, src, group=_group(grid, over))
     grid.stats.seconds += time.perf_counter() - t0
     grid.stats.calls += 1
     grid.stats.bytes += x.numel() * x.element_size()
@@ -235,9 +244,9 @@ def contiguous_shares(values: torch.Tensor, vectors: torch.Tensor,
 
 @dataclass
 class DistMatrix:
-    """A symmetric matrix on the grid: this rank's block
-    ``A[pr*nr:(pr+1)*nr, pc*nc:(pc+1)*nc]`` of the zero-padded
-    (n_m, n_m) matrix, ``n`` its logical dimension."""
+    """A square matrix on the grid (symmetric, or a triangular factor):
+    this rank's block ``A[pr*nr:(pr+1)*nr, pc*nc:(pc+1)*nc]`` of the
+    zero-padded (n_m, n_m) matrix, ``n`` its logical dimension."""
 
     local: torch.Tensor
     n: int
@@ -257,6 +266,21 @@ class DistMatrix:
 
     def with_local(self, local: torch.Tensor) -> "DistMatrix":
         return DistMatrix(local=local, n=self.n, grid=self.grid)
+
+    def rows(self, lo: int, hi: int) -> tuple[int, int]:
+        """Global rows [lo, hi) as a local run [a, b) of this block."""
+        return span(lo, hi, self.row0, self.local.shape[0])
+
+    def cols(self, lo: int, hi: int) -> tuple[int, int]:
+        """Global columns [lo, hi) as a local run [a, b) of this block."""
+        return span(lo, hi, self.col0, self.local.shape[1])
+
+
+def span(lo: int, hi: int, start: int, size: int) -> tuple[int, int]:
+    """The global run [lo, hi) as local indices [a, b) of a block that
+    starts at ``start`` and holds ``size`` (a == b when they miss)."""
+    a = min(max(lo - start, 0), size)
+    return a, max(a, min(max(hi - start, 0), size))
 
 
 def _block_bounds(n_m: int, grid: ProcessGrid):
@@ -305,11 +329,138 @@ def distribute_coo(coo, grid: ProcessGrid, dtype: torch.dtype) -> DistMatrix:
 def gather(x: DistMatrix) -> torch.Tensor:
     """The whole zero-padded (n_m, n_m) matrix on every rank
     (gather_matrix analog, distribute_matrix.f90:185-258)."""
+    return gather_block(x, 0, x.n_m, 0, x.n_m)
+
+
+def gather_block(x: DistMatrix, r0: int, r1: int, c0: int, c1: int,
+                 over: str = "world") -> torch.Tensor:
+    """``x[r0:r1, c0:c1]`` whole on every rank of the grid ("world"), or
+    of this rank's process row or column (``over``), whose ranks must
+    between them hold it: one ``all_reduce`` of a zeroed buffer in which
+    each rank fills the entries it holds (each entry has one owner, so the
+    sum is exact)."""
+    buf = torch.zeros((r1 - r0, c1 - c0), dtype=x.local.dtype,
+                      device=x.local.device)
+    a0, a1 = x.rows(r0, r1)
+    b0, b1 = x.cols(c0, c1)
+    if a1 > a0 and b1 > b0:
+        buf[x.row0 + a0 - r0:x.row0 + a1 - r0,
+            x.col0 + b0 - c0:x.col0 + b1 - c0] = x.local[a0:a1, b0:b1]
+    return all_reduce(buf, x.grid, over=over)
+
+
+def times_tall(x: DistMatrix, v: torch.Tensor, rows: tuple[int, int],
+               cols: tuple[int, int]) -> torch.Tensor:
+    """``x[r0:r1, c0:c1] @ v`` with ``v`` (c1 - c0, k) the same on every
+    rank, whole on every rank: each block's product in this rank's rows
+    of a zeroed (r1 - r0, k) buffer, summed over the grid by one
+    ``all_reduce`` (the process-row reduction and the process-column
+    gather in one call, as the one-stage core's column step)."""
+    (r0, r1), (c0, c1) = rows, cols
+    out = torch.zeros((r1 - r0, v.shape[1]), dtype=v.dtype, device=v.device)
+    a0, a1 = x.rows(r0, r1)
+    b0, b1 = x.cols(c0, c1)
+    if a1 > a0 and b1 > b0:
+        out[x.row0 + a0 - r0:x.row0 + a1 - r0] = \
+            x.local[a0:a1, b0:b1] @ v[x.col0 + b0 - c0:x.col0 + b1 - c0]
+    return all_reduce(out, x.grid)
+
+
+def transpose(x: DistMatrix) -> DistMatrix:
+    """``x^T`` on the same grid.  Block (pr, pc) of the result is
+    ``x[pc*nc:(pc+1)*nc, pr*nr:(pr+1)*nr]^T``, which other ranks hold:
+    each rank's block is broadcast in turn (:func:`rank_shares`) and every
+    rank keeps the part it needs, so a rank holds its own block and one
+    other at a time."""
     grid = x.grid
     nr, nc = x.local.shape
-    return gather_slots(x.local, (slice(x.row0, x.row0 + nr),
-                                  slice(x.col0, x.col0 + nc)),
-                        (x.n_m, x.n_m), grid)
+    out = torch.zeros_like(x.local)
+    # the rows and columns of x this rank's block of x^T reads
+    want_r, want_c = (x.col0, x.col0 + nc), (x.row0, x.row0 + nr)
+    shapes = [(nr, nc)] * grid.size
+    for q, blk in rank_shares(x.local, grid, shapes):
+        qr, qc = (q // grid.C) * nr, (q % grid.C) * nc
+        a0, a1 = span(*want_r, qr, nr)
+        b0, b1 = span(*want_c, qc, nc)
+        if a1 > a0 and b1 > b0:
+            out[qc + b0 - x.row0:qc + b1 - x.row0,
+                qr + a0 - x.col0:qr + a1 - x.col0] = blk[a0:a1, b0:b1].T
+    return x.with_local(out)
+
+
+def matmul(a: DistMatrix, b: DistMatrix, *, trans_a: bool = False,
+           trans_b: bool = False, rows: Optional[tuple[int, int]] = None,
+           cols: Optional[tuple[int, int]] = None,
+           inner: Optional[tuple[int, int]] = None,
+           panel: int = 256) -> DistMatrix:
+    """``C = op(a)[r0:r1, k0:k1] @ op(b)[k0:k1, c0:c1]`` in the block
+    [r0:r1, c0:c1] of a zero (n_m, n_m) DistMatrix (``rows``, ``cols``,
+    ``inner`` default to everything; ``op`` transposes by
+    :func:`transpose` first).  SUMMA on plain blocks: the inner range is
+    cut at every edge of a's column blocks and b's row blocks and every
+    ``panel`` columns, so each k-panel has one owning process column in a
+    and one owning process row in b; the owner broadcasts a's panel
+    along its process row and b's panel along its process column, and
+    every rank adds the local product.  Two collectives a panel."""
+    if trans_a:
+        a = transpose(a)
+    if trans_b:
+        b = transpose(b)
+    grid = a.grid
+    n = a.n_m
+    nr, nc = a.local.shape
+    r0, r1 = rows or (0, n)
+    c0, c1 = cols or (0, n)
+    k0, k1 = inner or (0, n)
+    out = torch.zeros_like(a.local)
+    ra, rb = a.rows(r0, r1)
+    ca, cb = a.cols(c0, c1)
+    cuts = sorted({k0, k1} | {k for k in range(0, n, nc) if k0 < k < k1}
+                  | {k for k in range(0, n, nr) if k0 < k < k1}
+                  | set(range(k0, k1, panel)))
+    for s, e in zip(cuts[:-1], cuts[1:]):
+        oc, orow = s // nc, s // nr       # owners of a's and b's panels
+        ap = a.local[:, s - oc * nc:e - oc * nc].contiguous() \
+            if grid.pc == oc else a.local.new_empty((nr, e - s))
+        broadcast(ap, grid, grid.pr * grid.C + oc, over="row")
+        bp = b.local[s - orow * nr:e - orow * nr].contiguous() \
+            if grid.pr == orow else b.local.new_empty((e - s, nc))
+        broadcast(bp, grid, orow * grid.C + grid.pc, over="col")
+        if rb > ra and cb > ca:
+            out[ra:rb, ca:cb].addmm_(ap[ra:rb], bp[:, ca:cb])
+    return a.with_local(out)
+
+
+def fill_padding_diagonal(x: DistMatrix, value) -> DistMatrix:
+    """A copy of ``x`` with ``value`` on the padding diagonal (rows and
+    columns >= x.n): identity for B, the Gershgorin sentinel for a
+    standard matrix (JAX ``solvers/api.py:43-83``,
+    ``pipelines.py:323-326``)."""
+    nr, nc = x.local.shape
+    rows = torch.arange(x.row0, x.row0 + nr, device=x.local.device)
+    at = rows - x.col0
+    pad = (rows >= x.n) & (at >= 0) & (at < nc)
+    local = x.local.clone()
+    local[pad, at[pad]] = value
+    return x.with_local(local)
+
+
+def local_eye(like: DistMatrix) -> DistMatrix:
+    """The (n_m, n_m) identity on ``like``'s grid."""
+    nr, nc = like.local.shape
+    rows = torch.arange(like.row0, like.row0 + nr, device=like.local.device)
+    cols = torch.arange(like.col0, like.col0 + nc, device=like.local.device)
+    eye = (rows[:, None] == cols[None, :]).to(like.local.dtype)
+    return like.with_local(eye)
+
+
+def global_index(x: DistMatrix):
+    """(rows (nr, 1), cols (1, nc)): the global indices of this block's
+    entries."""
+    nr, nc = x.local.shape
+    dev = x.local.device
+    return (torch.arange(x.row0, x.row0 + nr, device=dev)[:, None],
+            torch.arange(x.col0, x.col0 + nc, device=dev)[None, :])
 
 
 def print_grid_mapping(grid: ProcessGrid, file=None) -> None:

@@ -10,10 +10,12 @@ caller's matrices (``ops/refine.py``).
 On a process grid (``mesh=``, JAX ``api.py:145-195``) the matrix is
 zero-padded to the grid's ``padded_dim`` with a Gershgorin sentinel on the
 padding diagonal, so its lowest n pairs are the logical ones, and the
-one-stage core runs sharded: ``scalapack`` and ``scalapack_select``.
-``lapack`` runs replicated on every rank, as in the JAX package, and
-every rank keeps its share of the columns.  The other names refuse
-(:func:`mesh_refusal`).
+one-stage and two-stage cores run sharded; B is padded with identity on
+its padding diagonal (JAX ``api.py:43-83``) and the generalized
+reduction and recovery run on the grid.  ``lapack``, ``eigh`` and
+``general_eigh``'s core run replicated on every rank, as in the JAX
+package, and every rank keeps its share of the columns.  The ``jacobi``
+and ``qdwh`` cores and ``dtype='mixed'`` refuse (:func:`mesh_refusal`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
 from eigenkernel_tpu_torch.core.types import EigenPairs
 from eigenkernel_tpu_torch.obs.events import EventLog
 from eigenkernel_tpu_torch.obs.mem import memstats
-from eigenkernel_tpu_torch.ops.blocked import gershgorin_sentinel
 from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs
 from eigenkernel_tpu_torch.parallel import mesh as pm
 from eigenkernel_tpu_torch.solvers import pipelines as pl
@@ -38,7 +39,8 @@ from eigenkernel_tpu_torch.solvers.registry import (AUTO_NAMES, get_spec,
                                                     resolve_auto)
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
-MESH_SOLVERS = ("scalapack", "scalapack_select", "lapack")
+# registry names whose core has no grid version yet (ROADMAP A.6, 7d)
+MESH_REFUSED = ("jacobi", "general_jacobi", "qdwh_dc", "general_qdwh_dc")
 
 
 class NotPortedOnMeshError(ValueError):
@@ -47,15 +49,11 @@ class NotPortedOnMeshError(ValueError):
 
 def mesh_refusal(solver: str, mixed: bool = False) -> Optional[str]:
     """Why ``solver`` cannot run on a process grid yet, or None."""
-    where = "(ROADMAP A.6, slice 7b/7c/7d)"
-    if solver not in MESH_SOLVERS:
+    where = "(ROADMAP A.6, slice 7d)"
+    if solver in MESH_REFUSED:
         return f"{solver} on a mesh is not ported yet {where}"
     if mixed:
         return f"--dtype mixed on a mesh is not ported yet {where}"
-    if solver == "scalapack_select" and \
-            os.environ.get("EK_SELECT_CORE") == "two_stage":
-        return (f"EK_SELECT_CORE=two_stage on a mesh is not ported yet "
-                f"{where}")
     return None
 
 
@@ -113,14 +111,21 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     if not 0 < n_vec <= n:
         raise ValueError(f"n_vec={n_vec} out of range for n={n}")
     mixed = isinstance(dtype, str) and dtype == "mixed"
+    # EK_SELECT_CORE=one_stage|two_stage pins a selecting solver's SEP core,
+    # as in the JAX package.  Its 'auto' picks the two-stage core only on a
+    # TPU (a TPU crossover, not re-measured here), so 'auto' keeps the
+    # registry's one-stage core.
+    core = spec.core
+    if spec.selecting and core == "one_stage":
+        sel = os.environ.get("EK_SELECT_CORE", "auto")
+        if sel in ("one_stage", "two_stage"):
+            core = sel
     if mesh is not None:
         why = mesh_refusal(solver, mixed)
         if why is not None:
             raise NotPortedOnMeshError(why)
-        if b is not None:
-            raise ValueError(f"solver '{solver}' is not for generalized "
-                             f"problems")
-        return _solve_grid(a, spec, n, n_vec, block_size, log, dtype, mesh)
+        return _solve_grid(a, b, spec, core, n, n_vec, block_size, log,
+                           dtype, mesh)
     if a.shape[0] != a.shape[1] or (b is not None
                                     and tuple(b.shape) != tuple(a.shape)):
         raise ValueError("matrix dimension mismatch")
@@ -133,15 +138,6 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
     a_dev = torch.as_tensor(a).to(device=device, dtype=torch_dtype)
     panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
     ctx = pl.SolverContext(device=device, block_size=panel, log=log)
-    # EK_SELECT_CORE=one_stage|two_stage pins a selecting solver's SEP core,
-    # as in the JAX package.  Its 'auto' picks the two-stage core only on a
-    # TPU (a TPU crossover, not re-measured here), so 'auto' keeps the
-    # registry's one-stage core.
-    core = spec.core
-    if spec.selecting and core == "one_stage":
-        sel = os.environ.get("EK_SELECT_CORE", "auto")
-        if sel in ("one_stage", "two_stage"):
-            core = sel
     if b is None:
         w, z = pl.standard_pipeline(ctx, a_dev, n_vec, core)
     else:
@@ -167,45 +163,43 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
                             "device": str(device)})
 
 
-def _solve_grid(a, spec, n: int, n_vec: int, block_size: int,
+def _on_grid(x, grid: pm.ProcessGrid, dtype: torch.dtype,
+             n: int) -> pm.DistMatrix:
+    """``x`` (a DistMatrix, or the whole matrix on every rank) as a
+    DistMatrix on ``grid``'s device in ``dtype``."""
+    if isinstance(x, pm.DistMatrix):
+        if x.grid is not grid:
+            raise ValueError("solve: the matrix is on another grid")
+        return pm.DistMatrix(x.local.to(device=grid.device, dtype=dtype),
+                             n, grid)
+    return pm.distribute(x, grid, dtype, n)
+
+
+def _solve_grid(a, b, spec, core: str, n: int, n_vec: int, block_size: int,
                 log: Optional[EventLog], dtype: Any,
                 grid: pm.ProcessGrid) -> EigenPairs:
-    """A solve of a name of :data:`MESH_SOLVERS` on ``grid``."""
+    """A solve on ``grid`` of a name :func:`mesh_refusal` lets through."""
     src = a.local if isinstance(a, pm.DistMatrix) else a
     torch_dtype = _as_dtype(dtype, src)
     set_matmul_precision_highest()
-    if isinstance(a, pm.DistMatrix):
-        if a.grid is not grid:
-            raise ValueError("solve: the matrix is on another grid")
-        dm = a.with_local(a.local.to(device=grid.device, dtype=torch_dtype))
-    else:
-        dm = pm.distribute(a, grid, torch_dtype, n)
+    dm = _on_grid(a, grid, torch_dtype, n)
     panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
     ctx = pl.SolverContext(device=grid.device, block_size=panel, log=log,
                            mesh=grid)
-    if spec.core == "eigh":
-        # lapack: the whole matrix and the solve on every rank
-        full = pm.gather(dm)[:n, :n]
-        w, z = pl.sep_eigh(ctx, full, n_vec)
-        del full
-        out = pm.contiguous_shares(w, z, grid)
+    if b is None:
+        if core != "eigh":
+            dm = pl.sentinelize(dm)
+        out = pl.SEP_CORES[core](ctx, dm, n_vec)
     else:
-        if dm.n_m > n:
-            # the padding diagonal above the spectrum: the lowest n pairs
-            # of the padded matrix are the logical ones
-            mu = gershgorin_sentinel(dm, grid)
-            rows = torch.arange(dm.row0, dm.row0 + dm.local.shape[0],
-                                device=grid.device)
-            at = rows - dm.col0
-            pad = (rows >= n) & (at >= 0) & (at < dm.local.shape[1])
-            local = dm.local.clone()
-            local[pad, at[pad]] = mu
-            dm = dm.with_local(local)
-        out = pl.sep_one_stage(ctx, dm, n_vec)
+        bm = pm.fill_padding_diagonal(_on_grid(b, grid, torch_dtype, n), 1.0)
+        out = pl.generalized_pipeline(ctx, dm, bm, n_vec, core,
+                                      spec.reduction)
+        del bm
+    del dm
     keep = out.cols < n_vec
     return EigenPairs(values=out.values[:n_vec],
                       vectors=out.vectors[:n, keep],
-                      meta={"solver": spec.name, "core": spec.core,
+                      meta={"solver": spec.name, "core": core,
                             "panel": panel, "device": str(grid.device),
                             "grid": (grid.R, grid.C)},
                       grid=grid, cols=out.cols[keep])

@@ -29,12 +29,16 @@ reference's hierarchical names (``solve:reduce_elpa``,
 ``torch.cuda.synchronize()`` before each clock stops, and its model
 GFLOP/s as ``!<stage>_Gflops``.
 
-On a process grid (``SolverContext.mesh``) the one-stage core runs
-sharded (``sep_one_stage``: the matrix a
+On a process grid (``SolverContext.mesh``) the one-stage and two-stage
+cores run sharded (the matrix a
 :class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix`, the result a
-:class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`), and every
-stage's clock stops after a barrier over the grid too, so its seconds are
-the slowest rank's.
+:class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`), the ``eigh``
+core replicated on every rank, and the generalized pipeline's reduction
+and recovery on the grid (JAX ``pipelines.py:150-177``): the reduced
+matrix gets the Gershgorin sentinel on its padding diagonal before the
+core, as the JAX package sentinelizes ``a_std``.  Every stage's clock
+stops after a barrier over the grid too, so its seconds are the slowest
+rank's.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from eigenkernel_tpu_torch.obs import flops as fl
 from eigenkernel_tpu_torch.obs.events import EventLog, barrier
 from eigenkernel_tpu_torch.ops import householder, jacobi, qdwh
 from eigenkernel_tpu_torch.ops import reduction as red
+from eigenkernel_tpu_torch.ops.blocked import GEMM_BLOCK, gershgorin_sentinel
 from eigenkernel_tpu_torch.ops import tridiag as td
 from eigenkernel_tpu_torch.parallel import mesh as pm
 
@@ -60,6 +65,7 @@ class SolverContext:
     block_size: int = DEFAULT_BLOCK_SIZE
     log: Optional[EventLog] = None
     mesh: Optional[pm.ProcessGrid] = None
+    gemm_block: int = GEMM_BLOCK   # the grid reductions' panel width
 
     def tick(self, name: str, t0: float,
              flops: Optional[float] = None) -> None:
@@ -84,6 +90,31 @@ def _run(ctx: SolverContext, name: str, fn: Callable, *args,
     return out
 
 
+def tridiag_eigh(d: torch.Tensor, e: torch.Tensor, n_vec: int,
+                 mesh: Optional[pm.ProcessGrid] = None,
+                 n_logical: Optional[int] = None):
+    """``td.tridiag_eigh``; on a grid whose matrix is padded past
+    ``n_logical``, the padding's eigenpairs are left out, and the vectors
+    get zero padding rows.  T splits exactly there by construction: every
+    reflector is zero on the padding rows, so ``e[n_logical - 1]`` is 0
+    exactly (checked, on (d, e), the same on every rank).  The padding's
+    sentinel (kept for the cores that solve the padded matrix whole)
+    would otherwise sit inside the solve and widen each merge's deflation
+    tolerance in divide and conquer, which scales with the largest pole
+    (the float32 ``eigensx`` at n = 131 on a 2 x 2 grid then misses its
+    residual bar)."""
+    n_m = d.shape[0]
+    if mesh is None or n_logical is None or n_logical >= n_m:
+        return td.tridiag_eigh(d, e, n_vec, mesh)
+    if float(e[n_logical - 1]) != 0.0:
+        raise RuntimeError(f"tridiag_eigh: T does not split at the padding "
+                           f"(e[{n_logical - 1}] = {float(e[n_logical - 1])})")
+    out = td.tridiag_eigh(d[:n_logical], e[:n_logical - 1], n_vec, mesh)
+    z = out.vectors.new_zeros((n_m, out.vectors.shape[1]))
+    z[:n_logical] = out.vectors
+    return out._replace(vectors=z)
+
+
 def sep_one_stage(ctx: SolverContext, a, n_vec: int):
     """pdsytrd + tridiagonal solve + pdormtr analog (see module doc).  On
     a grid ``a`` is a DistMatrix and the result a ColumnShares."""
@@ -91,8 +122,9 @@ def sep_one_stage(ctx: SolverContext, a, n_vec: int):
     n = a.shape[0] if mesh is None else a.n_m
     tri = _run(ctx, "sep:tridiagonalize", householder.tridiagonalize,
                a, ctx.block_size, mesh, flops=fl.tridiagonalize(n))
-    out = _run(ctx, "sep:tridiag_eigh", td.tridiag_eigh, tri.d, tri.e,
-               n_vec, mesh, flops=fl.tridiag_eigh(n, n_vec))
+    out = _run(ctx, "sep:tridiag_eigh", tridiag_eigh, tri.d, tri.e, n_vec,
+               mesh, None if mesh is None else a.n,
+               flops=fl.tridiag_eigh(n, n_vec))
     z = _run(ctx, "sep:back_transform", householder.apply_q, tri, out[1],
              ctx.block_size, mesh, flops=fl.back_transform_one_stage(n, n_vec))
     if mesh is None:
@@ -100,19 +132,38 @@ def sep_one_stage(ctx: SolverContext, a, n_vec: int):
     return out._replace(vectors=z)
 
 
-def sep_two_stage(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+def sep_two_stage(ctx: SolverContext, a, n_vec: int):
     """eigen_sx / ELPA2 analog: full -> band -> tridiagonal, then solve."""
     from eigenkernel_tpu_torch.solvers.twostage import sep_two_stage as impl
 
     return impl(ctx, a, n_vec)
 
 
-def sep_eigh(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+def sep_eigh(ctx: SolverContext, a, n_vec: int):
     """The library core: one ``torch.linalg.eigh`` (cuSOLVER's syevd on
-    the card)."""
-    w, z = _run(ctx, "sep:eigh", torch.linalg.eigh, a,
-                flops=fl.eigh(a.shape[0]))
-    return w[:n_vec], z[:, :n_vec]
+    the card).  On a grid the logical matrix is gathered and solved on
+    every rank (as ``lapack``; XLA gathers it for the JAX package), each
+    rank keeping its run of the columns, zero on the padding rows."""
+    if ctx.mesh is None:
+        w, z = _run(ctx, "sep:eigh", torch.linalg.eigh, a,
+                    flops=fl.eigh(a.shape[0]))
+        return w[:n_vec], z[:, :n_vec]
+    full = pm.gather(a)[:a.n, :a.n]
+    w, z = _run(ctx, "sep:eigh", torch.linalg.eigh, full,
+                flops=fl.eigh(a.n))
+    del full
+    out = pm.contiguous_shares(w[:n_vec], z[:, :n_vec], ctx.mesh)
+    pad = out.vectors.new_zeros((a.n_m, out.vectors.shape[1]))
+    pad[:a.n] = out.vectors
+    return out._replace(vectors=pad)
+
+
+def sentinelize(a: pm.DistMatrix) -> pm.DistMatrix:
+    """The Gershgorin sentinel on a grid matrix's padding diagonal: the
+    lowest n pairs of the padded matrix are then the logical ones."""
+    if a.n_m == a.n:
+        return a
+    return pm.fill_padding_diagonal(a, gershgorin_sentinel(a, a.grid))
 
 
 def sep_jacobi(ctx: SolverContext, a: torch.Tensor, n_vec: int):
@@ -159,19 +210,26 @@ _REDUCTIONS = {
 }
 
 
-def generalized_pipeline(ctx: SolverContext, a: torch.Tensor,
-                         b: torch.Tensor, n_vec: int, core: str,
+def generalized_pipeline(ctx: SolverContext, a, b, n_vec: int, core: str,
                          reduction_style: str):
     """Generalized EVP: reduce, SEP core, recover.  The vectors
     ``x = L^{-T} z`` are B-orthonormal as they come (the dsygv
-    convention): no renormalizing."""
+    convention): no renormalizing.  On a grid ``a`` and ``b`` are
+    DistMatrix (B with identity on its padding diagonal) and the result
+    a ColumnShares."""
     sep = SEP_CORES[core]
-    n = a.shape[0]
+    mesh = ctx.mesh
+    n = a.shape[0] if mesh is None else a.n_m
     event, reduce, model = _REDUCTIONS[reduction_style]
-    r = _run(ctx, event, reduce, a, b, flops=model(n))
+    r = _run(ctx, event, reduce, a, b, mesh, ctx.gemm_block, flops=model(n))
     a_std, r = r.a_std, r._replace(a_std=None)
-    w, z = sep(ctx, a_std, n_vec)
+    if mesh is not None:
+        a_std = sentinelize(a_std)
+    out = sep(ctx, a_std, n_vec)
     del a_std
-    x = _run(ctx, "recovery_generalized", red.recover, r, z,
-             flops=fl.recover(n, n_vec))
-    return w, x
+    z = out[1] if mesh is None else out.vectors
+    x = _run(ctx, "recovery_generalized", red.recover, r, z, mesh,
+             ctx.gemm_block, flops=fl.recover(n, n_vec))
+    if mesh is None:
+        return out[0], x
+    return out._replace(vectors=x)

@@ -114,7 +114,9 @@ def profile(lib, band_m: torch.Tensor, b: int):
     blocks = ctypes.c_int(0)
     build.check(res_fn(b, window, ctypes.byref(blocks)), "resident")
     grid = chase.grid_size(n, b, blocks.value)
-    lb, hv, ht = chase._state(band_m, b)
+    lb = chase.lower_storage(band_m, b)
+    T = chase.n_positions(n, b)
+    hv, ht = lb.new_zeros((n, T, b)), lb.new_zeros((n, T))
     bar = torch.zeros(1, dtype=torch.int32, device=band_m.device)
     build.check(lib.ek_prof_reset(), "reset")
     stream = torch.cuda.current_stream().cuda_stream

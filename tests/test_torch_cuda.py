@@ -691,3 +691,66 @@ def test_two_ranks_on_one_card_select(cuda_device, tmp_path):
     assert np.linalg.norm(a @ v - v * w, axis=0).max() <= \
         1e-12 * np.linalg.norm(a)
     assert np.abs(v.T @ v - np.eye(k)).max() <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_banded_chase_entry_on_card_bit_for_bit(cuda_device, dtype):
+    # a process grid hands B3 the band as its banded lower storage: the
+    # same state as the dense entry builds, so the same bits
+    n, bw = 4096, 64
+    bnd = _chase_input(n, bw, 70, dtype, cuda_device)
+    lower = chase.lower_storage(bnd, bw)
+    before = chase.LAUNCHES
+    one = chase.band_to_tridiag(bnd, bw)
+    two = chase.banded_to_tridiag(lower, n, bw)
+    torch.cuda.synchronize()
+    assert chase.LAUNCHES == before + 2
+    for f in ("d", "e", "HV", "HT"):
+        assert torch.equal(getattr(one, f), getattr(two, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["wf_bt", "chase_bt"])
+def test_back_transform_kernels_on_a_column_share_on_card(cuda_device, dtype,
+                                                          kernel):
+    # on a grid each rank runs B4 or B5 on its own columns of z: a column
+    # slice gives those columns of the whole call
+    n, bw, k = 1024, 64, 130
+    res, z = _chase_bt_input(n, bw, k, dtype, cuda_device, ())
+    fn = wf_bt.apply_chase_q_wavefront if kernel == "wf_bt" \
+        else backtransform.apply_chase_q_sweeps
+    whole = fn(res, z)
+    for lo, hi in ((0, 33), (33, 97), (97, 130), (64, 65)):
+        part = fn(res, z[:, lo:hi].contiguous())
+        assert torch.equal(part, whole[:, lo:hi])
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_two_stage(cuda_device, tmp_path):
+    # a 1 x 2 grid of gloo ranks sharing the card: general_elpa2 (B3 on
+    # each rank, the sharded blocked back-transform) and eigensx under
+    # EK_BACKTRANSFORM=wf_pallas (B4) and pallas (B5) on each rank's
+    # columns; eigenvalues and the B-metric checks against numpy
+    n = 300
+    rng = np.random.default_rng(52)
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    m = rng.standard_normal((n, n))
+    b = m @ m.T / n + np.eye(n)
+    ranks.run_ranks("card_two_stage", 2, (1, 2), a, b, str(tmp_path))
+    ref_g = sla.eigh(a, b, eigvals_only=True)
+    ref_s = np.linalg.eigvalsh(a)
+    for r in range(2):
+        res = dict(np.load(tmp_path / f"rank{r}.npz"))
+        for tag, ref, kernels in (("elpa2", ref_g, ("chase",)),
+                                  ("wf", ref_s, ("chase", "wf_bt")),
+                                  ("pallas", ref_s, ("chase", "chase_bt"))):
+            launched = dict(zip(("chase", "wf_bt", "chase_bt"),
+                                res[f"{tag}/launches"]))
+            assert all(launched[k] > 0 for k in kernels)
+            assert np.abs(res[f"{tag}/w"] - ref).max() <= \
+                1e-10 * np.abs(ref).max()
+            resid, orth = res[f"{tag}/check"]
+            assert resid <= 1e-12 and orth <= 1e-10

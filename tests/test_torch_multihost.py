@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+import scipy.linalg as sla
 import torch
 
 import torch_mesh_ranks as ranks
@@ -18,6 +19,8 @@ from eigenkernel_tpu_torch.cli import main as port_main
 from eigenkernel_tpu_torch.core.types import MatrixInfo, SparseMatrix
 from eigenkernel_tpu_torch.io.matrix_market import write_matrix
 from eigenkernel_tpu_torch.parallel import multihost as mh
+from eigenkernel_tpu_torch.solvers.api import mesh_refusal
+from eigenkernel_tpu_torch.solvers.registry import SOLVERS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
@@ -35,6 +38,26 @@ def _write_mtx(path, n, seed):
     i, j = np.tril_indices(n)
     keep = (i - j <= 5) | (rng.random(i.size) < 0.1)
     write_matrix(str(path), SparseMatrix(n, i[keep], j[keep], a[i, j][keep]))
+
+
+def _write_spd(path, n, seed):
+    """An SPD B (diagonally dominant, a band of 4), written whole."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((n, n))
+    for d in range(1, 5):
+        off = 0.3 * rng.standard_normal(n - d)
+        b += np.diag(off, d) + np.diag(off, -d)
+    b += np.diag(1.0 + np.abs(b).sum(axis=1))
+    i, j = np.tril_indices(n)
+    keep = b[i, j] != 0
+    write_matrix(str(path), SparseMatrix(n, i[keep], j[keep], b[i, j][keep]))
+    return b
+
+
+def _read_dense(path):
+    from eigenkernel_tpu_torch.io.matrix_market import read_header, read_matrix
+
+    return read_matrix(str(path), read_header(str(path))).to_dense()
 
 
 def _run_processes(workdir, argv, world=2, extra_env=None):
@@ -143,18 +166,61 @@ def test_two_process_master_error_no_deadlock(tmp_path):
     assert any("[Error]" in o for o in outs)
 
 
+def test_two_process_cli_generalized(tmp_path):
+    # -s general_elpa2 on a 1 x 2 grid: B broadcast and densified by block,
+    # the elpa reduction, to_band, the chase on both ranks and the
+    # sharded back-transform; the B-metric checks run on the grid
+    n = 70
+    _write_mtx(tmp_path / "A.mtx", n, 43)
+    b = _write_spd(tmp_path / "B.mtx", n, 44)
+    a = _read_dense(tmp_path / "A.mtx")
+    codes, outs = _run_processes(tmp_path, [
+        "--platform", "cpu", "--mesh", "1,2", "-s", "general_elpa2", "-c",
+        "-1", "-t", f"1,{n}", "-d", "vec", "-p", "1-2",
+        str(tmp_path / "A.mtx"), str(tmp_path / "B.mtx")])
+    assert codes == [0, 0], outs
+    ev = np.loadtxt(tmp_path / "eigenvalues.dat")
+    ref = sla.eigh(a, b, eigvals_only=True)
+    assert ev.shape == (n, 2)
+    assert np.abs(ev[:, 1] - ref).max() <= 1e-12 * np.abs(ref).max()
+    checks = {}
+    for line in outs[0].splitlines():
+        if line.startswith(("residual norm (max)", "orthogonality")):
+            checks[line.split()[0]] = float(line.split()[-1])
+    assert checks["residual"] <= 1e-12 and checks["orthogonality"] <= 1e-10
+    # each vector B-normalized, the ipratios in the B metric
+    ipr = np.loadtxt(tmp_path / "ipratios.dat")
+    for j in (1, 2):
+        v = np.loadtxt(tmp_path / "vec" / f"{j:08d}.dat")[:, 2]
+        assert abs(v @ b @ v - 1.0) <= 1e-10
+        assert abs(ipr[j - 1, 1] - (v ** 4).sum() / (v @ b @ v) ** 2) \
+            <= 1e-10 * ipr[j - 1, 1]
+
+
 @pytest.mark.parametrize("argv", [
-    ["-s", "jacobi"], ["-s", "eigensx"], ["-s", "qdwh_dc"], ["-s", "eigh"],
-    ["-s", "scalapack", "--dtype", "mixed"]])
+    ["-s", "jacobi"], ["-s", "general_jacobi"], ["-s", "qdwh_dc"],
+    ["-s", "general_qdwh_dc"], ["-s", "scalapack", "--dtype", "mixed"]])
 def test_grid_refuses_names_outside_the_slice(tmp_path, monkeypatch, capsys,
                                               argv):
     # on two processes these names stop before any process joins a group
     mtx = tmp_path / "A.mtx"
     _write_mtx(mtx, 20, 42)
+    files = [str(mtx)]
+    if argv[1].startswith("general_"):
+        _write_spd(tmp_path / "B.mtx", 20, 45)
+        files.append(str(tmp_path / "B.mtx"))
     monkeypatch.setenv("EK_NUM_PROCESSES", "2")
     monkeypatch.chdir(tmp_path)
-    assert port_main(["--platform", "cpu", *argv, str(mtx)]) == 1
+    assert port_main(["--platform", "cpu", *argv, *files]) == 1
     err = capsys.readouterr().err
     assert "[Error]" in err and "on a mesh is not ported yet" in err
     assert not torch.distributed.is_initialized()
     assert not (tmp_path / "eigenvalues.dat").exists()
+
+
+def test_grid_refuses_exactly_the_names_of_slice_7d(monkeypatch):
+    monkeypatch.setenv("EK_SELECT_CORE", "two_stage")
+    refused = {name for name in SOLVERS if mesh_refusal(name)}
+    assert refused == {"jacobi", "general_jacobi", "qdwh_dc",
+                       "general_qdwh_dc"}
+    assert mesh_refusal("scalapack", mixed=True) is not None

@@ -1,5 +1,6 @@
 """Rank processes for the port's grid tests (``test_torch_mesh.py``,
-``test_torch_multihost.py``, ``test_torch_cuda.py``).
+``test_torch_mesh_gen.py``, ``test_torch_multihost.py``,
+``test_torch_cuda.py``).
 
 :func:`run_ranks` starts ``world`` spawned processes that join one gloo
 group on 127.0.0.1 at a free port, each with one thread, and runs a
@@ -11,6 +12,7 @@ the port only, so a rank starts without JAX.
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import socket
@@ -95,10 +97,27 @@ def _whole(values, vectors, cols, grid):
     return values.cpu().numpy(), v.cpu().numpy()
 
 
+@contextlib.contextmanager
+def _env(values):
+    """Set the environment variables ``values`` (a dict) for a block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
-    """Solve each (tag, solver, n_vec, dtype, a) of ``cases`` on the grid
-    and write the eigenpairs whole, with the verifier's numbers (residual
-    average and max, orthogonality) and the ipratios."""
+    """Solve each (tag, solver, n_vec, dtype, a[, b[, env]]) of ``cases``
+    on the grid (B, when given, a generalized problem; ``env`` the
+    environment of the solve) and write the eigenpairs whole, with the
+    verifier's numbers (residual average and max, orthogonality; B
+    metric for a generalized problem) and the ipratios."""
     import torch
 
     from eigenkernel_tpu_torch.parallel import mesh as pm
@@ -109,17 +128,152 @@ def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
 
     grid = _grid(shape)
     out = {}
-    for tag, solver, n_vec, dtype, a in cases:
-        dm = pm.distribute(a, grid, getattr(torch, dtype))
-        pairs = solve(dm, solver=solver, n_vec=n_vec, mesh=grid)
+    for tag, solver, n_vec, dtype, a, *more in cases:
+        b, env = (list(more) + [None, {}])[:2]
+        dt = getattr(torch, dtype)
+        with _env(env):
+            dm = pm.distribute(a, grid, dt)
+            bm = None if b is None else pm.distribute(b, grid, dt)
+            pairs = solve(dm, bm, solver=solver, n_vec=n_vec, mesh=grid)
         w, v = _whole(pairs.values, pairs.vectors, pairs.cols, grid)
         k = w.shape[0]
-        _, ave, mx = eval_residual_norm(dm, pairs, k)
+        _, ave, mx = eval_residual_norm(dm, pairs, k, bm)
         out[f"{tag}/w"], out[f"{tag}/v"] = w, v
         out[f"{tag}/check"] = np.array([ave, mx,
-                                        eval_orthogonality(pairs, 1, k)])
-        out[f"{tag}/ipr"] = get_ipratios(pairs)
+                                        eval_orthogonality(pairs, 1, k, bm)])
+        out[f"{tag}/ipr"] = get_ipratios(pairs, bm)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def generalized_modules(rank: int, shape, inputs: dict, out_dir: str) -> None:
+    """The modules of the generalized and two-stage grid paths on their
+    own, each result gathered whole: the products (``matmul`` plain and
+    transposed, ``transpose``, ``times_tall``), the Cholesky factor, the
+    inverse and the three solves, the three reductions' ``a_std`` and
+    ``recover`` of the identity, ``to_band`` (the band's storage, Q
+    applied to the identity, this rank's WY groups); and the largest
+    tensor a rank made in a ``general_elpa2`` pipeline."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import band, blocked, reduction
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+
+    grid = _grid(shape)
+    f64 = torch.float64
+    blk = int(inputs["block"])
+    a = pm.distribute(inputs["a"], grid, f64)
+    b = pm.fill_padding_diagonal(pm.distribute(inputs["b"], grid, f64), 1.0)
+    c = pm.distribute(inputs["c"], grid, f64)
+    n_m = a.n_m
+    out = {"n_m": np.array(n_m)}
+    lo, hi = pm.share(n_m, grid.size, grid.rank)
+    eye = torch.eye(n_m, dtype=f64)[:, lo:hi]
+
+    def whole_cols(z):
+        return pm.gather_slots(z, (slice(None), slice(lo, hi)), (n_m, n_m),
+                               grid).numpy()
+
+    out["mm"] = pm.gather(pm.matmul(a, c, panel=blk)).numpy()
+    out["mm_t"] = pm.gather(pm.matmul(a, c, trans_a=True, trans_b=True,
+                                      panel=blk)).numpy()
+    out["mm_part"] = pm.gather(pm.matmul(a, c, rows=(3, n_m - 5),
+                                         cols=(7, n_m), inner=(2, n_m - 9),
+                                         panel=blk)).numpy()
+    out["c_t"] = pm.gather(pm.transpose(c)).numpy()
+    x = torch.tensor(inputs["x"])
+    out["tall"] = pm.times_tall(c, x[4:n_m - 1], (1, n_m - 2),
+                                (4, n_m - 1)).numpy()
+    l = blocked.blocked_cholesky(b, blk, grid)
+    out["chol"] = pm.gather(l).numpy()
+    out["inv"] = pm.gather(blocked.invert_lower_triangular(l, blk,
+                                                           grid)).numpy()
+    out["trsm"] = pm.gather(blocked.trsm_lower(l, a, block=blk,
+                                               mesh=grid)).numpy()
+    out["trsm_t"] = pm.gather(blocked.trsm_lower(l, a, transpose=True,
+                                                 block=blk, mesh=grid)).numpy()
+    out["trsm_r"] = pm.gather(blocked.trsm_right_lower_t(
+        l, a, block=blk, mesh=grid)).numpy()
+    for style, fn in (("scalapack", reduction.reduce_scalapack),
+                      ("scalapack_new", reduction.reduce_scalapack_new),
+                      ("elpa", reduction.reduce_elpa)):
+        red = fn(a, b, grid, blk)
+        out[f"{style}/a_std"] = pm.gather(red.a_std).numpy()
+        out[f"{style}/recover"] = whole_cols(reduction.recover(red, eye, grid,
+                                                               blk))
+    try:
+        blocked.blocked_cholesky(pm.distribute(-inputs["b"], grid, f64), blk,
+                                 grid)
+        out["breakdown"] = np.array("")
+    except blocked.NotPositiveDefiniteError as exc:
+        out["breakdown"] = np.array(str(exc))
+    bw = int(inputs["bw"])
+    res = band.to_band(a, bw, mesh=grid)
+    out["band/lower"] = res.lower.numpy()
+    out["band/taus"] = res.taus.numpy()
+    out["band/Q"] = whole_cols(band.apply_band_q(res, eye, mesh=grid))
+    out["band/groups"] = np.array(sorted(res.V.mine), dtype=np.int64)
+    for method in ("blocked", "wf_pallas"):
+        out[f"largest/{method}"] = np.array(
+            _largest_in_pipeline(a, b, grid, blk, method))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _largest_in_pipeline(a, b, grid, gemm_block: int, method: str) -> int:
+    """The most elements of any tensor the ops of one ``general_elpa2``
+    pipeline under ``EK_BACKTRANSFORM=method`` made on this rank (torch's
+    dispatcher sees each op's outputs), at a bandwidth of half the
+    reductions' panel width, the chase's reflector store left out: it is
+    (n, T, bw) on every rank during the chase, and under ``wf_pallas``
+    whole, with its group-major copies, for B4."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from eigenkernel_tpu_torch.ops import chase, wf_bt
+    from eigenkernel_tpu_torch.solvers import pipelines as pl
+
+    class Largest(TorchDispatchMode):
+        most = 0
+        paused = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            result = func(*args, **(kwargs or {}))
+            if not self.paused:
+                # new storage only: a view of an input is no allocation
+                held = {t.untyped_storage().data_ptr() for t in
+                        torch.utils._pytree.tree_leaves((args, kwargs))
+                        if isinstance(t, torch.Tensor)}
+                for t in torch.utils._pytree.tree_leaves(result):
+                    if isinstance(t, torch.Tensor) and \
+                            t.untyped_storage().data_ptr() not in held:
+                        self.most = max(self.most, t.numel())
+            return result
+
+    mode = Largest()
+
+    def unwatched(run):
+        def call(*args):
+            mode.paused = True
+            try:
+                return run(*args)
+            finally:
+                mode.paused = False
+        return call
+
+    ctx = pl.SolverContext(device=grid.device, block_size=gemm_block // 2,
+                           mesh=grid, gemm_block=gemm_block)
+    store = [(chase, "banded_to_tridiag"), (wf_bt, "group_stores"),
+             (wf_bt, "_composite_views")]
+    runs = [getattr(mod, name) for mod, name in store]
+    for (mod, name), run in zip(store, runs):
+        setattr(mod, name, unwatched(run))
+    try:
+        with _env({"EK_BACKTRANSFORM": method}), mode:
+            pl.generalized_pipeline(ctx, a, b, a.n,
+                                    "two_stage", "elpa")
+    finally:
+        for (mod, name), run in zip(store, runs):
+            setattr(mod, name, run)
+    return mode.most
 
 
 def module_checks(rank: int, shape, inputs: dict, out_dir: str) -> None:
@@ -265,3 +419,40 @@ def card_select(rank: int, shape, a, k: int, out_dir: str) -> None:
              e=e.cpu().numpy(),
              first=solve_fn(*seen["tridiag_solve"]).cpu().numpy(),
              lanes=np.array(pm.share(k, grid.size, grid.rank)))
+
+
+def card_two_stage(rank: int, shape, a, b, out_dir: str) -> None:
+    """``general_elpa2`` of (a, b), and ``eigensx`` of a under
+    ``EK_BACKTRANSFORM=wf_pallas`` and ``pallas``, on a grid of ranks
+    sharing card 0 (gloo on CUDA tensors): each solve's eigenvalues, its
+    B3, B4 and B5 launches and the grid verifier's residual and
+    orthogonality."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import backtransform, chase, wf_bt
+    from eigenkernel_tpu_torch.parallel import mesh as pm
+    from eigenkernel_tpu_torch.solvers.api import solve
+    from eigenkernel_tpu_torch.verify import (eval_orthogonality,
+                                              eval_residual_norm)
+
+    torch.cuda.set_device(0)
+    grid = _grid(shape, torch.device("cuda", 0))
+    out = {}
+    for tag, solver, bmat, bt in (("elpa2", "general_elpa2", b, "auto"),
+                                  ("wf", "eigensx", None, "wf_pallas"),
+                                  ("pallas", "eigensx", None, "pallas")):
+        dm = pm.distribute(a, grid, torch.float64)
+        bm = None if bmat is None else pm.distribute(bmat, grid,
+                                                     torch.float64)
+        chase.LAUNCHES = wf_bt.LAUNCHES = backtransform.LAUNCHES = 0
+        with _env({"EK_BACKTRANSFORM": bt}):
+            pairs = solve(dm, bm, solver=solver, mesh=grid)
+        torch.cuda.synchronize()
+        out[f"{tag}/launches"] = np.array([chase.LAUNCHES, wf_bt.LAUNCHES,
+                                           backtransform.LAUNCHES])
+        k = pairs.values.shape[0]
+        out[f"{tag}/w"] = pairs.values.cpu().numpy()
+        out[f"{tag}/check"] = np.array([
+            eval_residual_norm(dm, pairs, k, bm)[2],
+            eval_orthogonality(pairs, 1, k, bm)])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
