@@ -4,7 +4,8 @@ CUDA card.
 
     python3 chip_smoke.py            # every phase, on card 0
     python3 chip_smoke.py --cards    # phases 1, 2, 4, 11 and phase 13's
-                                     # NCCL runs on every card only
+                                     # NCCL runs on every card only (with
+                                     # jacobi on two cards or more)
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -141,6 +142,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     stream) and B5 against theirs on rank 0's operands.  Each rank prints
     its stage seconds, peak device memory (beside the single-device
     run's) and its collectives' count, host seconds and MiB.
+15. The cores of slice 7d on the process grid: four gloo ranks on the
+    one card as a 2 x 2 grid, each run held against the same name's
+    single-device run of phase 12: ``jacobi`` and ``qdwh_dc`` (seed 10),
+    ``--dtype mixed`` ``general_elpa2`` (phase 11's A and B) and
+    ``EK_SELECT_CORE=two_stage --dtype mixed -s scalapack_select -n 500``
+    (seed 10), both under ``EK_BACKTRANSFORM=wf_pallas``, and
+    ``general_jacobi`` and ``general_qdwh_dc`` (phase 11's A and B), all
+    at n = 4096.  Eigenvalues within 1e-10 ||A||_2 of the single-device
+    run, the grid verifier's residual and orthogonality to phase 4's bars
+    (the mixed select's residual to the float32 bar, as in phase 12),
+    each path's kernels launched on every rank (D2 once a round: 756 a
+    float64 solve).  Then, outside the launch counts, D2 against its
+    plain version on rank 0's round-1 pair blocks (``torch.equal`` on
+    values, vectors, sweeps and rotations), B3 against its plain version
+    on each mixed run's float32 grid band, each rank's B3 (d, e) equal to
+    one device's on that band, and B4 against its plain version on rank
+    0's operands.  Each rank prints its stage seconds, peak device memory
+    (beside the single-device run's), its collectives' count, host
+    seconds and MiB, and the jacobi core's collectives a round and a
+    solve; the qdwh runs print the blocks the grid split.  In ``--cards``
+    mode on two cards or more, the NCCL CLI also runs ``-s jacobi`` on
+    phase 12's matrix, against its ``eigvalsh``.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -1539,11 +1562,12 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
 
 
 def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
-    """One rank of a grid run (phases 13 and 14): join the group, make the
+    """One rank of a grid run (phases 13-15): join the group, make the
     grid on ``device``, and solve each (tag, solver, k, n, seed[, b_seed[,
-    env]]) of ``jobs`` on its ELSES-style matrix (and the overlap B of
-    ``b_seed``, a generalized problem; ``env`` the solve's environment);
-    write what the phases read."""
+    env[, dtype]]]) of ``jobs`` on its ELSES-style matrix (and the overlap
+    B of ``b_seed``, a generalized problem; ``env`` the solve's
+    environment; ``dtype`` "mixed" or None, float64); write what the
+    phases read."""
     import numpy as np
     import torch
 
@@ -1554,7 +1578,8 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
     from eigenkernel_tpu_torch.core.config import set_matmul_precision_highest
     from eigenkernel_tpu_torch.core.types import SparseMatrix
     from eigenkernel_tpu_torch.obs.events import EventLog
-    from eigenkernel_tpu_torch.ops import chase, tridiag, tridiag_solve
+    from eigenkernel_tpu_torch.ops import (chase, jacobi, qdwh, tridiag,
+                                           tridiag_solve)
     from eigenkernel_tpu_torch.parallel import mesh as pm
     from eigenkernel_tpu_torch.parallel import multihost
     from eigenkernel_tpu_torch.solvers import twostage
@@ -1568,7 +1593,8 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
         grid = pm.single_device_mesh(device) if shape == (1, 1) \
             else pm.make_mesh(shape, device)
         for tag, solver, k, n, seed, *more in jobs:
-            b_seed, job_env = (list(more) + [None, {}])[:2]
+            b_seed, job_env, dtype = (list(more) + [None, {}, None]
+                                      [len(more):])[:3]
             mat = SparseMatrix(n, *elses_like(n, seed))
             dm = pm.distribute_coo(mat, grid, torch.float64)
             bm = None if b_seed is None else pm.distribute_coo(
@@ -1585,10 +1611,12 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                     capture(chase, "banded_to_tridiag", limit=1) as b3, \
                     capture(twostage, "apply_chase_q_wavefront", 1,
                             keywords=True) as b4, \
-                    capture(twostage, "apply_chase_q_sweeps", 1) as b5:
+                    capture(twostage, "apply_chase_q_sweeps", 1) as b5, \
+                    capture_ends(jacobi, "pair_eigh") as d2, \
+                    grid_core_counts(grid) as core:
                 t0 = time.time()
                 pairs = solve(dm, bm, solver=solver, n_vec=k, mesh=grid,
-                              log=log)
+                              log=log, dtype=dtype)
                 pm.barrier(grid)
                 seconds = time.time() - t0
             launches = read_launches()
@@ -1620,6 +1648,15 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                 d, e = tri[0][:2]
                 out.update(lower=b3[0][0].cpu().numpy(),
                            chase_d=d.cpu().numpy(), chase_e=e.cpu().numpy())
+            if core["jacobi"]:
+                # the jacobi core's collectives and rounds, and (rank 0)
+                # its pair blocks of round 1
+                out.update(jacobi_core=np.array(core["jacobi"],
+                                                dtype=np.float64))
+                if rank == 0:
+                    out.update(d2_round1=d2["first"][0].cpu().numpy())
+            if core["splits"]:
+                out.update(qdwh_splits=np.array(core["splits"]))
             if rank == 0 and (b4 or b5):
                 # B4's or B5's operands on this rank: the chase's store
                 # and the rank's columns of z (and B4's phase budget)
@@ -1632,6 +1669,38 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
             del dm, bm, pairs
     finally:
         torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def grid_core_counts(grid):
+    """Record, on this rank, the collectives, their bytes and the rounds
+    of a grid ``block_jacobi_on_grid`` call (``jacobi``: [calls, bytes,
+    rounds]) and the size of each block the grid qdwh recursion tried to
+    split (``splits``, negative where the split was refused)."""
+    from eigenkernel_tpu_torch.ops import jacobi, qdwh
+
+    seen = {"jacobi": [], "splits": []}
+    core, split = jacobi.block_jacobi_on_grid, qdwh._split_grid
+
+    def counted(a, block=64, sweeps=0, n_vec=None):
+        calls, nbytes = grid.stats.calls, grid.stats.bytes
+        rounds = jacobi.LAUNCHES if a.local.is_cuda else 0
+        out = core(a, block, sweeps, n_vec)
+        seen["jacobi"] = [grid.stats.calls - calls,
+                          grid.stats.bytes - nbytes,
+                          jacobi.LAUNCHES - rounds]
+        return out
+
+    def splitting(x, *args):
+        out = split(x, *args)
+        seen["splits"].append(x.n_m if out is not None else -x.n_m)
+        return out
+
+    jacobi.block_jacobi_on_grid, qdwh._split_grid = counted, splitting
+    try:
+        yield seen
+    finally:
+        jacobi.block_jacobi_on_grid, qdwh._split_grid = core, split
 
 
 def free_port() -> int:
@@ -1674,10 +1743,12 @@ def run_grid(world, backend, shape, devices, jobs, out_dir):
           f"{time.time() - t0:.1f} s with the ranks' start")
 
 
-def report_grid(tag, world, out_dir, ref_values, norm2, want):
+def report_grid(tag, world, out_dir, ref_values, norm2, want,
+                resid_bar=1e-12):
     """Print each rank's stage seconds, peak memory and collectives; hold
     the run's eigenvalues to the single-device ones and its checks to the
-    float64 bars; require the kernels ``want`` launched on every rank."""
+    float64 bars (the residual to ``resid_bar``); require the kernels
+    ``want`` launched on every rank."""
     import numpy as np
 
     res = [dict(np.load(os.path.join(out_dir, f"{tag}_rank{r}.npz")))
@@ -1701,7 +1772,8 @@ def report_grid(tag, world, out_dir, ref_values, norm2, want):
     check(err <= 1e-10 * norm2, f"{tag}: |eig - single device| {err:.3e} <= "
                                 f"1e-10 * ||A||_2 ({norm2:.4g})")
     resid, orth = res[0]["checks"]
-    check(resid <= 1e-12, f"{tag}: resid max {resid:.3e} <= 1e-12")
+    check(resid <= resid_bar, f"{tag}: resid max {resid:.3e} <= "
+                              f"{resid_bar:g}")
     check(orth <= 1e-10, f"{tag}: orthogonality {orth:.3e} <= 1e-10")
     return res
 
@@ -1895,6 +1967,191 @@ def phase_mesh_gen(dev, tmp, gen_pair):
     return out
 
 
+def phase_mesh_extra(dev, tmp):
+    """Phase 15: the cores of slice 7d on a 2 x 2 grid of gloo ranks on
+    this card, float64 (and mixed), each held against the same name's
+    single-device run of phase 12 (its eigenvalues.dat in ``tmp``):
+    eigenvalues within 1e-10 ||A||_2, the grid verifier's residual and
+    orthogonality to phase 4's bars (the mixed select's residual to the
+    float32 bar, as in phase 12), each path's kernels launched on every
+    rank (D2 once a round).  Then, outside the launch counts, D2 against
+    its plain version on rank 0's round-1 pair blocks (bit for bit), and
+    B3 on each mixed run's grid band and B4 on rank 0's operands against
+    theirs.  Prints each rank's stages, peak and collectives, and the
+    jacobi core's collectives a round and a solve."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import bulge, jacobi, wf_bt
+
+    wf = {"EK_BACKTRANSFORM": "wf_pallas"}
+    # (tag, solver, k, n, seed, b_seed, env, dtype, phase 12's run,
+    #  kernels, residual bar)
+    runs = [("jacobi", "jacobi", None, N_X, 10, None, {}, None,
+             "x_jacobi_float64", ("pair_eigh",), 1e-12),
+            ("qdwh", "qdwh_dc", None, N_X, 10, None, {}, None,
+             "x_qdwh_dc_float64", (), 1e-12),
+            ("mixed_elpa2", "general_elpa2", None, N_GEN, 8, 9, wf, "mixed",
+             "x_general_elpa2_mixed", ("chase", "wf_bt", "deflate"), 1e-12),
+            ("mixed_select_2s", "scalapack_select", K_X, N_X, 10, None,
+             dict(wf, EK_SELECT_CORE="two_stage"), "mixed",
+             "x_scalapack_select_mixed", ("chase", "sturm", "solve",
+                                          "wf_bt"), 1e-5),
+            ("gen_jacobi", "general_jacobi", None, N_GEN, 8, 9, {}, None,
+             "x_general_jacobi_float64", ("pair_eigh",), 1e-12),
+            ("gen_qdwh", "general_qdwh_dc", None, N_GEN, 8, 9, {}, None,
+             "x_general_qdwh_dc_float64", (), 1e-12)]
+    out_dir = os.path.join(tmp, "mesh_extra")
+    os.makedirs(out_dir)
+    run_grid(4, "gloo", (2, 2), [str(dev)] * 4, [r[:8] for r in runs],
+             out_dir)
+    full = np.loadtxt(os.path.join(tmp, "x_jacobi_float64",
+                                   "eigenvalues.dat"), ndmin=2)[:, 1]
+    full_gen = np.loadtxt(os.path.join(tmp, "x_general_jacobi_float64",
+                                       "eigenvalues.dat"), ndmin=2)[:, 1]
+    rounds = (N_X // DEFAULT_BLOCK_SIZE - 1) * 12
+    out = {"checks": {"chase": [], "wf_bt": [], "pair_eigh": []}}
+    for tag, _, _, n, _, b_seed, _, _, single, want, bar in runs:
+        ref = np.loadtxt(os.path.join(tmp, single, "eigenvalues.dat"),
+                         ndmin=2)[:, 1]
+        norm2 = float(np.abs(full_gen if b_seed is not None
+                             else full).max())
+        res = report_grid(tag, 4, out_dir, ref, norm2, want, resid_bar=bar)
+        print(f"  {tag}: one device's peak ({single[2:]}) "
+              f"{PEAK_GIB[single]:.2f} GiB")
+        out[tag] = [
+            {"launches": json.loads(str(r["launches"])),
+             "stages": json.loads(str(r["stages"])),
+             "seconds": float(r["seconds"]),
+             "peak_gib": float(r["peak"]) / 2**30,
+             "one_device_peak_gib": PEAK_GIB[single],
+             "collectives": int(r["stats"][0]),
+             "collective_s": float(r["stats"][1]),
+             "collective_mib": float(r["stats"][2]) / 2**20} for r in res]
+        if "pair_eigh" in want:
+            for r, rk in enumerate(res):
+                calls, nbytes, n_rounds = rk["jacobi_core"]
+                check(n_rounds == rounds and json.loads(
+                    str(rk["launches"]))["pair_eigh"] == rounds,
+                      f"{tag} rank {r}: D2 launched once a round "
+                      f"({int(n_rounds)} == {rounds})")
+                print(f"  {tag} rank {r}: the jacobi core made "
+                      f"{int(calls)} collectives ({calls / rounds:.3f} a "
+                      f"round, {nbytes / rounds / 2**20:.2f} MiB a round) "
+                      f"in {int(n_rounds)} rounds")
+                out[tag][r].update(core_collectives=int(calls),
+                                   core_mib=float(nbytes) / 2**20,
+                                   rounds=int(n_rounds))
+            # D2 against its plain version on rank 0's round-1 pair blocks
+            blocks = torch.tensor(res[0]["d2_round1"], device=dev)
+            got = jacobi.pair_eigh(blocks)
+            t0 = time.time()
+            plain = jacobi.pair_eigh_plain(blocks)
+            torch.cuda.synchronize()
+            plain_ms = (time.time() - t0) * 1e3
+            same = all(torch.equal(x, y) for x, y in zip(got, plain))
+            ms = time_ms(lambda: jacobi.pair_eigh(blocks), 3)
+            m, w = blocks.shape[0], blocks.shape[1]
+            print(f"  D2 on {tag} rank 0's round-1 pair blocks ({m}, {w}, "
+                  f"{w}): {ms:.3f} ms, plain {plain_ms:.1f} ms, sweeps "
+                  f"{got.sweeps.tolist()}, torch.equal on values, vectors, "
+                  f"sweeps and rotations: {same}")
+            check(same, f"{tag}: D2 == pair_eigh_plain on the grid's "
+                        f"round-1 blocks, bit for bit")
+            out["checks"]["pair_eigh"].append(
+                {"run": tag, "m": m, "w": w, "ms": ms, "plain_ms": plain_ms,
+                 "max_abs_err": 0.0})
+            del blocks, got, plain
+        if "qdwh_splits" in res[0]:
+            print(f"  {tag}: blocks the grid split (negative: refused) "
+                  f"{res[0]['qdwh_splits'].tolist()}")
+        if "chase" not in want:
+            continue
+        # B3 against its plain version on the grid's band, B4 on rank 0's
+        # operands (float32: the mixed runs' pipeline)
+        bw = DEFAULT_BLOCK_SIZE
+        band = band_of_lower(res[0]["lower"], n, bw, dev)
+        lam_band = torch.linalg.eigvalsh(band.double()).cpu().numpy()
+        one, row = compare_chase(band, bw, lam_band, f"f32 ({tag} grid band)",
+                                 reps=1, recon=False)
+        out["checks"]["chase"].append(dict(row, run=tag, n=n))
+        d, e = one.d.cpu().numpy(), one.e.cpu().numpy()
+        del one, band
+        for r, rk in enumerate(res):
+            check(np.array_equal(rk["chase_d"], d)
+                  and np.array_equal(rk["chase_e"], e),
+                  f"{tag} rank {r}: B3 (d, e) == one device's dense-entry "
+                  f"B3 on the same band, bit for bit")
+        r0 = res[0]
+        hv = torch.tensor(r0["bt_hv"], device=dev)
+        cres = bulge.ChaseResult(
+            torch.tensor(r0["chase_d"], device=dev),
+            torch.tensor(r0["chase_e"], device=dev), hv,
+            torch.tensor(r0["bt_ht"], device=dev), hv.shape[2])
+        z = torch.tensor(r0["bt_z"], device=dev)
+        sb = int(r0["bt_stream_bytes"])
+        check(sb > 0, f"{tag}: B4 ran with the grid's phase budget")
+        row = compare_bt(
+            f"apply_chase_q_wavefront ({tag} rank 0 operands, phases of "
+            f"{sb} bytes)",
+            lambda r_, z_: wf_bt.apply_chase_q_wavefront(
+                r_, z_, stream_bytes=sb),
+            lambda r_, z_: wf_bt.apply_chase_q_wavefront_plain(
+                r_, z_, stream_bytes=sb), cres, z)
+        row.update(stream_bytes=sb, phases=wf_bt.plan(cres, z, 0, sb).nph)
+        out["checks"]["wf_bt"].append(dict(row, run=tag))
+        del hv, cres, z
+        torch.cuda.empty_cache()
+    return out
+
+
+def cli_on_cards(tmp, name, cards, shape, args):
+    """The CLI on one process a card under NCCL, ``--mesh`` ``shape``, in
+    a new directory ``tmp/name``; returns (that directory, process 0's
+    output), each process exiting 0."""
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    env_ = dict(os.environ, EK_NUM_PROCESSES=str(cards), PYTHONPATH=ROOT,
+                EK_COORDINATOR=f"127.0.0.1:{free_port()}")
+    argv = [sys.executable, "-m", "eigenkernel_tpu_torch", "--mesh",
+            f"{shape[0]},{shape[1]}", *args]
+    procs = [subprocess.Popen(argv, cwd=work,
+                              env=dict(env_, EK_PROCESS_ID=str(i)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(cards)]
+    try:
+        outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(outs[0])
+    check(all(p.returncode == 0 for p in procs),
+          f"the CLI {' '.join(args[:2])} on {cards} processes, --mesh "
+          f"{shape[0]},{shape[1]}, exits 0 ({[p.returncode for p in procs]})")
+    return work, outs[0]
+
+
+def check_cards(work, out0, ref, norm2, label):
+    """A CLI run on the cards: its eigenvalues.dat within 1e-10 ||A||_2
+    of ``ref``, its residual and orthogonality to phase 4's bars."""
+    import numpy as np
+
+    ev = np.loadtxt(os.path.join(work, "eigenvalues.dat"), ndmin=2)
+    check(ev.shape == (len(ref), 2), f"{label}: {len(ref)} eigenvalues")
+    err = float(np.abs(ev[:, 1] - ref).max())
+    check(err <= 1e-10 * norm2, f"{label}: |eig - single device| {err:.3e} "
+                                f"<= 1e-10 * ||A||_2")
+    resid = _number(out0, "residual norm (max):")
+    orth = _number(out0, "orthogonality criterion:")
+    check(resid <= 1e-12 and orth <= 1e-10,
+          f"{label}: resid {resid:.3e} <= 1e-12, orthogonality {orth:.3e} "
+          f"<= 1e-10")
+
+
 def mesh_every_card(jobs, out_dir, tmp, ref, norm2):
     """NCCL on every card of the machine (phase 13): a one-rank 1 x 1 grid
     through ``solve`` on one card, else the CLI on one process a card;
@@ -1914,82 +2171,33 @@ def mesh_every_card(jobs, out_dir, tmp, ref, norm2):
         report_grid("select", 1, out_dir, ref["select"], norm2["select"],
                     ("sturm", "solve"))
     else:
-        work = os.path.join(tmp, "mesh_cli")
-        os.makedirs(work)
-        env_ = dict(os.environ, EK_NUM_PROCESSES=str(cards),
-                    PYTHONPATH=ROOT, EK_COORDINATOR=f"127.0.0.1:{free_port()}")
-        argv = [sys.executable, "-m", "eigenkernel_tpu_torch", "--mesh",
-                f"{shape[0]},{shape[1]}", "-s", "scalapack_select", "-n",
-                str(K_MAIN), "-c", str(K_MAIN), "-t", f"1,{K_MAIN}",
-                os.path.join(tmp, f"A{N_MAIN}_1.mtx")]
-        procs = [subprocess.Popen(argv, cwd=work,
-                                  env=dict(env_, EK_PROCESS_ID=str(i)),
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for i in range(cards)]
-        try:
-            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        print(outs[0])
-        check(all(p.returncode == 0 for p in procs),
-              f"the CLI on {cards} processes, --mesh {shape[0]},{shape[1]}, "
-              f"exits 0 ({[p.returncode for p in procs]})")
+        work, out0 = cli_on_cards(tmp, "mesh_cli", cards, shape, [
+            "-s", "scalapack_select", "-n", str(K_MAIN), "-c", str(K_MAIN),
+            "-t", f"1,{K_MAIN}", os.path.join(tmp, f"A{N_MAIN}_1.mtx")])
         with open(os.path.join(work, "log.json")) as f:
             events = json.load(f)["events"]
         print("  stage table (process 0): " + ", ".join(
             f"{e_['name']} {e_['val']:.6f}" for e_ in events
             if e_["name"].startswith(("sep:", "main:eigen_solver"))))
-        ev = np.loadtxt(os.path.join(work, "eigenvalues.dat"), ndmin=2)
-        err = float(np.abs(ev[:, 1] - ref["select"]).max())
-        check(ev.shape == (K_MAIN, 2) and err <= 1e-10 * norm2["select"],
-              f"nccl {cards} cards: |eig - single device| {err:.3e} <= "
-              f"1e-10 * ||A||_2")
-        resid = _number(outs[0], "residual norm (max):")
-        orth = _number(outs[0], "orthogonality criterion:")
-        check(resid <= 1e-12 and orth <= 1e-10,
-              f"nccl {cards} cards: resid {resid:.3e} <= 1e-12, "
-              f"orthogonality {orth:.3e} <= 1e-10")
+        check_cards(work, out0, ref["select"], norm2["select"],
+                    f"nccl {cards} cards")
         # -s general_elpa2 on phase 11's A and B files, against phase 11
-        work = os.path.join(tmp, "mesh_cli_gen")
-        os.makedirs(work)
-        env_["EK_COORDINATOR"] = f"127.0.0.1:{free_port()}"
-        argv = [sys.executable, "-m", "eigenkernel_tpu_torch", "--mesh",
-                f"{shape[0]},{shape[1]}", "-s", "general_elpa2", "-c", "-1",
-                "-t", f"1,{N_GEN}", os.path.join(tmp, f"A{N_GEN}_8.mtx"),
-                os.path.join(tmp, f"B{N_GEN}_9.mtx")]
-        procs = [subprocess.Popen(argv, cwd=work,
-                                  env=dict(env_, EK_PROCESS_ID=str(i)),
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for i in range(cards)]
-        try:
-            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        print(outs[0])
-        check(all(p.returncode == 0 for p in procs),
-              f"the CLI general_elpa2 on {cards} processes exits 0 "
-              f"({[p.returncode for p in procs]})")
-        ev = np.loadtxt(os.path.join(work, "eigenvalues.dat"), ndmin=2)
+        work, out0 = cli_on_cards(tmp, "mesh_cli_gen", cards, shape, [
+            "-s", "general_elpa2", "-c", "-1", "-t", f"1,{N_GEN}",
+            os.path.join(tmp, f"A{N_GEN}_8.mtx"),
+            os.path.join(tmp, f"B{N_GEN}_9.mtx")])
         single = np.loadtxt(os.path.join(tmp, "gen_general_elpa2_float64",
                                          "eigenvalues.dat"), ndmin=2)[:, 1]
-        err = float(np.abs(ev[:, 1] - single).max())
-        norm2g = float(np.abs(single).max())
-        check(ev.shape == (N_GEN, 2) and err <= 1e-10 * norm2g,
-              f"nccl {cards} cards general_elpa2: |eig - single device| "
-              f"{err:.3e} <= 1e-10 * ||A||_2")
-        resid = _number(outs[0], "residual norm (max):")
-        orth = _number(outs[0], "orthogonality criterion:")
-        check(resid <= 1e-12 and orth <= 1e-10,
-              f"nccl {cards} cards general_elpa2: resid {resid:.3e} <= "
-              f"1e-12, orthogonality {orth:.3e} <= 1e-10")
+        check_cards(work, out0, single, float(np.abs(single).max()),
+                    f"nccl {cards} cards general_elpa2")
+        # -s jacobi on phase 12's matrix (block columns, D2 on each card's
+        # pairs), against eigvalsh of the matrix
+        mat, path = write_elses(tmp, N_X, seed=10)
+        lam = reference_eigvalsh(mat, torch.device("cuda", 0))
+        work, out0 = cli_on_cards(tmp, "mesh_cli_jacobi", cards, shape, [
+            "-s", "jacobi", "-c", "-1", "-t", f"1,{N_X}", path])
+        check_cards(work, out0, lam, float(np.abs(lam).max()),
+                    f"nccl {cards} cards jacobi")
     print(f"NCCL on {cards} card(s), a {shape[0]} x {shape[1]} grid: "
           f"{time.time() - t0:.1f} s")
     return f"{shape[0]} x {shape[1]}"
@@ -2093,6 +2301,10 @@ def main(argv) -> int:
         mesh_gen = phase_mesh_gen(dev, tmp, gen_pair)
         print(f"process grid, generalized and two-stage: "
               f"{time.time() - t0:.1f} s")
+        t0 = time.time()
+        mesh_x = phase_mesh_extra(dev, tmp)
+        print(f"process grid, jacobi, qdwh_dc and --dtype mixed: "
+              f"{time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
@@ -2110,6 +2322,11 @@ def main(argv) -> int:
                                     ("solve", "gen_select_2s"),
                                     ("chase_bt", "sx_pallas"),
                                     ("deflate", "gen_elpa2"))}
+
+    # and of phase 15's mixed runs (float32 pipeline, B4 under wf_pallas)
+    by_rank_x = {key: {tag: [r["launches"][key] for r in mesh_x[tag]]
+                       for tag in ("mixed_elpa2", "mixed_select_2s")}
+                 for key in ("sturm", "solve", "chase", "wf_bt", "deflate")}
 
     # each entry's numbers at one shape of its path: B1/B2 at phase 3's
     # n = 4096, k = 500 (and on the n = 16384 path's operands under
@@ -2171,9 +2388,12 @@ def main(argv) -> int:
         if key in by_rank:
             entries[-1]["mesh_launches_by_rank"] = by_rank[key]
         entries[-1]["mesh_gen_launches_by_rank"] = by_rank_gen[key]
-        # phase 14: the kernel against its plain version on the grid's
-        # operands (B3 on each run's band, B4 and B5 on rank 0's)
-        entries[-1]["mesh_gen_checks"] = mesh_gen["checks"].get(key, [])
+        if key in by_rank_x:
+            entries[-1]["mesh_extra_launches_by_rank"] = by_rank_x[key]
+        # phases 14 and 15: the kernel against its plain version on the
+        # grid's operands (B3 on each run's band, B4 and B5 on rank 0's)
+        entries[-1]["mesh_gen_checks"] = mesh_gen["checks"].get(key, []) \
+            + mesh_x["checks"].get(key, [])
     # D1: the six levels of one float64 tridiag_dc at n = 4096 on the
     # scalapack path's operands; not a TPU kernel (it replaces the
     # deflation lax.scans of the JAX function)
@@ -2193,7 +2413,8 @@ def main(argv) -> int:
                                     {"launches_generalized":
                                      launches_gen["deflate"]}],
                     "mesh_launches_by_rank": by_rank["deflate"],
-                    "mesh_gen_launches_by_rank": by_rank_gen["deflate"]})
+                    "mesh_gen_launches_by_rank": by_rank_gen["deflate"],
+                    "mesh_extra_launches_by_rank": by_rank_x["deflate"]})
     # D2: the float64 jacobi path's first-round pair blocks (dense, the
     # most sweeps); not a TPU kernel (it replaces the library eigh of the
     # pair blocks in the JAX function)
@@ -2214,7 +2435,16 @@ def main(argv) -> int:
                     + [{"launches_by_run": x_out["launches"],
                         "mixed_vs_f64": x_out["mixed_vs_f64"],
                         "refine_by_steps": x_out["refine_by_steps"],
-                        "profile_jacobi": x_out["profile_jacobi"]}]})
+                        "profile_jacobi": x_out["profile_jacobi"]}],
+                    # phase 15: D2 on each rank's pairs of the 2 x 2 grid
+                    "mesh_gen_launches_by_rank": {
+                        tag: [r["launches"]["pair_eigh"] for r in mesh_x[tag]]
+                        for tag in ("jacobi", "gen_jacobi")},
+                    "mesh_gen_checks": mesh_x["checks"]["pair_eigh"],
+                    "mesh_collectives_a_round": {
+                        tag: [r["core_collectives"] / r["rounds"]
+                              for r in mesh_x[tag]]
+                        for tag in ("jacobi", "gen_jacobi")}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,9 +21,8 @@ default the near-square layout).  Process 0 probes the header and reads
 the COO triplets, broadcasts them, and each process densifies its own
 block (of A, and of B for a generalized problem); eigenvalues.dat,
 ipratios.dat and log.json come from process 0, the eigenvector files from
-every process in turn.  On a grid every name runs but ``jacobi``,
-``qdwh_dc``, ``general_jacobi`` and ``general_qdwh_dc``, and ``--dtype
-mixed``, which print ``[Error] ...``.
+every process in turn.  Every name runs on a grid, in every ``--dtype``
+(``mixed``: the float64 blocks of A and B are the ones densified here).
 ``--profile <dir>`` traces the solve with ``torch.profiler`` into
 ``<dir>/trace_rank<r>.json``.
 """
@@ -68,16 +67,6 @@ def _print_select_report(values: np.ndarray, rel_tol: float = 1e-8) -> None:
               f"orthogonality enforced by shift separation + CholeskyQR2")
 
 
-def _unsupported(arg, on_grid: bool) -> str | None:
-    """Why this run cannot go ahead in this package yet, or None."""
-    from eigenkernel_tpu_torch.solvers.api import mesh_refusal
-    from eigenkernel_tpu_torch.solvers.registry import AUTO_NAMES
-
-    if on_grid and arg.solver_type not in AUTO_NAMES:
-        return mesh_refusal(arg.solver_type, arg.dtype == "mixed")
-    return None
-
-
 def _profiler(arg, device):
     """torch.profiler around the solve with ``--profile``, else nothing."""
     import torch
@@ -106,11 +95,6 @@ def main(argv=None) -> int:
         print(f"[Error] {exc}", file=sys.stderr)
         return 1
     n_proc = int(os.environ.get("EK_NUM_PROCESSES", "0") or 0)
-    on_grid = n_proc > 1 or arg.mesh_shape not in (None, (1, 1))
-    why = _unsupported(arg, on_grid)
-    if why is not None:
-        print(f"[Error] {why}", file=sys.stderr)
-        return 1
     if arg.platform == "cuda" and not torch.cuda.is_available():
         print("[Error] --platform cuda: no CUDA device is available "
               "(use --platform cpu to run on the CPU)", file=sys.stderr)
@@ -146,7 +130,7 @@ def _main(arg, argv, t_start) -> int:
     from eigenkernel_tpu_torch.obs.events import EventLog
     from eigenkernel_tpu_torch.parallel import mesh as pm
     from eigenkernel_tpu_torch.parallel import multihost as mh
-    from eigenkernel_tpu_torch.solvers.api import mesh_refusal, solve
+    from eigenkernel_tpu_torch.solvers.api import solve
     from eigenkernel_tpu_torch.solvers.registry import (
         AUTO_NAMES, UnknownSolverError, get_spec, resolve_auto)
     from eigenkernel_tpu_torch.verify import (
@@ -223,11 +207,6 @@ def _main(arg, argv, t_start) -> int:
         print(f"[Error] {exc}", file=sys.stderr)
         return 1
     spec = get_spec(arg.solver_type)
-    why = mesh_refusal(arg.solver_type, arg.dtype == "mixed") \
-        if n_proc > 1 else None
-    if why is not None:
-        print(f"[Error] {why}", file=sys.stderr)
-        return 1
 
     # --- read the matrices on process 0 (read_matrix_file analog); COO
     # only, densified after the broadcast

@@ -134,9 +134,11 @@ def _offsets(b: int, dev):
         # pivot column for t == 0 (jcol = p-1) and for t > 0 (jcol = p-b)
         "x0": r[:, 0] * W + (2 * b - 1 - r[:, 0]),
         "x1": r[:, 0] * W + (b - r[:, 0]),
-        # D[r, s] = A[p+max, p+min]; the write takes its lower half
+        # D[r, s] = A[p+max, p+min]; the write takes its lower half (as
+        # indices: a mask would make the device sync, which a CUDA graph
+        # cannot capture)
         "D": hi * W + 2 * b + lo - hi,
-        "lower": (s <= r).reshape(-1),
+        "lower": (s <= r).reshape(-1).nonzero()[:, 0],
         # left strip L[r, s] = A[p+r, p-b-1+s], s in [0, b]
         "L": r * W + b - 1 + sl - r,
         # fill rows F[r, s] = A[p+b+r, p+s]
@@ -148,42 +150,70 @@ def chase_plain(lb: torch.Tensor, hv: torch.Tensor, ht: torch.Tensor,
                 n: int, b: int) -> None:
     """The kernel's steps in PyTorch: per step, gather the live lanes'
     faces, update, scatter back.  Updates ``lb``, ``hv`` and ``ht`` in
-    place."""
+    place.  Every step's lanes go to the device in one copy up front; on
+    a CUDA tensor each step replays a CUDA graph of its operations,
+    captured once for each count of live lanes, on a static copy of the
+    step's lanes (a launch a step, not ~40)."""
     T = hv.shape[1]
-    W = 2 * b + 1
     dev = lb.device
-    flat = lb.view(-1)
     off = _offsets(b, dev)
     d_low = off["D"].reshape(-1)[off["lower"]]
-    for tau in range(n_steps(n, b)):
-        lanes = _live_lanes(tau, n, b, T)
-        if not lanes:
+    steps = [lanes for lanes in (_live_lanes(tau, n, b, T)
+                                 for tau in range(n_steps(n, b))) if lanes]
+    every = torch.tensor([x for lanes in steps for x in lanes],
+                         device=dev).T                         # (3, total)
+    # the graphs write nothing to their pool that outlives a replay, so
+    # one pool serves them all
+    graphs, pool = {}, None
+    at = 0
+    for lanes in steps:
+        idx = every[:, at:at + len(lanes)]
+        at += len(lanes)
+        if not lb.is_cuda:
+            _chase_step(lb, hv, ht, idx, off, d_low, b)
             continue
-        c, t, p = (torch.tensor(x, device=dev) for x in zip(*lanes))
-        base = (p * W)[:, None]
-        x = torch.where((t == 0)[:, None], flat[base + off["x0"]],
-                        flat[base + off["x1"]])                    # (nl, b)
-        v, th = _house_pivot0(x)
-        hv[c, t] = v
-        ht[c, t] = th
-        thv = th[:, None, None]
-        base3 = base[:, :, None]
-        D = flat[base3 + off["D"]]                                 # (nl,b,b)
-        L = flat[base3 + off["L"]]                                 # (nl,b,b+1)
-        F = flat[base3 + off["F"]]                                 # (nl,b,b)
-        dv = (D * v[:, None, :]).sum(2)
-        vdv = (v * dv).sum(1)[:, None, None]
-        vv = v[:, :, None] * v[:, None, :]
-        dnew = (D - thv * (v[:, :, None] * dv[:, None, :])
-                - thv * (dv[:, :, None] * v[:, None, :])
-                + thv * thv * vdv * vv)
-        cl = (v[:, :, None] * L).sum(1)                            # (nl,b+1)
-        L = L - thv * (v[:, :, None] * cl[:, None, :])
-        cr = (F * v[:, None, :]).sum(2)                            # (nl, b)
-        F = F - thv * (cr[:, :, None] * v[:, None, :])
-        flat[base + d_low] = dnew.reshape(len(lanes), -1)[:, off["lower"]]
-        flat[base3 + off["L"]] = L
-        flat[base3 + off["F"]] = F
+        if len(lanes) not in graphs:
+            static = torch.empty_like(idx)
+            graph = torch.cuda.CUDAGraph()
+            pool = pool or torch.cuda.graph_pool_handle()
+            with torch.cuda.graph(graph, pool=pool):
+                _chase_step(lb, hv, ht, static, off, d_low, b)
+            graphs[len(lanes)] = (graph, static)
+        graph, static = graphs[len(lanes)]
+        static.copy_(idx)
+        graph.replay()
+
+
+def _chase_step(lb, hv, ht, idx, off, d_low, b: int) -> None:
+    """One step of the plain chase on the lanes ``idx`` = (c, t, p)."""
+    W = 2 * b + 1
+    flat = lb.view(-1)
+    c, t, p = idx
+    nl = idx.shape[1]
+    base = (p * W)[:, None]
+    x = torch.where((t == 0)[:, None], flat[base + off["x0"]],
+                    flat[base + off["x1"]])                    # (nl, b)
+    v, th = _house_pivot0(x)
+    hv[c, t] = v
+    ht[c, t] = th
+    thv = th[:, None, None]
+    base3 = base[:, :, None]
+    D = flat[base3 + off["D"]]                                 # (nl,b,b)
+    L = flat[base3 + off["L"]]                                 # (nl,b,b+1)
+    F = flat[base3 + off["F"]]                                 # (nl,b,b)
+    dv = (D * v[:, None, :]).sum(2)
+    vdv = (v * dv).sum(1)[:, None, None]
+    vv = v[:, :, None] * v[:, None, :]
+    dnew = (D - thv * (v[:, :, None] * dv[:, None, :])
+            - thv * (dv[:, :, None] * v[:, None, :])
+            + thv * thv * vdv * vv)
+    cl = (v[:, :, None] * L).sum(1)                            # (nl,b+1)
+    L = L - thv * (v[:, :, None] * cl[:, None, :])
+    cr = (F * v[:, None, :]).sum(2)                            # (nl, b)
+    F = F - thv * (cr[:, :, None] * v[:, None, :])
+    flat[base + d_low] = dnew.reshape(nl, -1)[:, off["lower"]]
+    flat[base3 + off["L"]] = L
+    flat[base3 + off["F"]] = F
 
 
 def _check(band: torch.Tensor) -> None:

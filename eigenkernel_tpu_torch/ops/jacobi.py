@@ -28,7 +28,7 @@ no port of a TPU kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ import torch
 from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.ops.blocked import gershgorin_sentinel
 from eigenkernel_tpu_torch.ops.dc import sqrt_rn
+from eigenkernel_tpu_torch.parallel import mesh as pm
 
 LAUNCHES = 0  # launches of D2 by pair_eigh (CPU tensors do not count)
 MAX_SWEEPS = 15  # inner Jacobi sweeps a pair block at most
@@ -216,6 +217,25 @@ def _rot_rows(x: torch.Tensor, rows: torch.Tensor, rot: torch.Tensor):
                   .view(m * w2, -1))
 
 
+def _rotations(sub: torch.Tensor) -> torch.Tensor:
+    """A round's block rotations from its pair blocks ``sub`` (m, 2b, 2b):
+    the pair eigh's vectors (kernel D2 on a CUDA tensor), columns ordered
+    closest to the identity, made orthogonal by one Newton-Schulz step."""
+    rot = pair_eigh((sub + sub.transpose(1, 2)) * 0.5).vectors
+    # columns in the order of their largest entry's row: the identity
+    # stays the fixed point of an already diagonal pair block
+    key = rot.abs().argmax(dim=1)                           # (m, 2b)
+    cperm = torch.argsort(key, dim=1, stable=True)
+    rot = torch.gather(rot, 2, cperm[:, None, :].expand_as(rot))
+    # one Newton-Schulz step, rot (3 I - rot^T rot) / 2: the kernel's
+    # rotations, products of some w^2 plane rotations each rounded on
+    # its own, are orthogonal to ~1e-14 (a library eigh's to ~3e-15),
+    # and without the step the spectrum drifts by ~1e-13 ||A|| over
+    # the rounds; two (m, 2b, 2b) products, ~2 % of a round's work
+    return 1.5 * rot - 0.5 * torch.bmm(rot, torch.bmm(rot.transpose(1, 2),
+                                                      rot))
+
+
 def block_jacobi_eigh(a: torch.Tensor, block: int = 64, sweeps: int = 0):
     """Full eigendecomposition by block Jacobi.  Returns (w, v) ascending.
 
@@ -241,20 +261,7 @@ def block_jacobi_eigh(a: torch.Tensor, block: int = 64, sweeps: int = 0):
     v = torch.eye(big, dtype=dtype, device=dev)
     for it in range(sweeps * n_rounds):
         rows = rows_tab[it % n_rounds]                      # (m, 2b)
-        sub = x[rows[:, :, None], rows[:, None, :]]         # (m, 2b, 2b)
-        rot = pair_eigh((sub + sub.transpose(1, 2)) * 0.5).vectors
-        # columns in the order of their largest entry's row: the identity
-        # stays the fixed point of an already diagonal pair block
-        key = rot.abs().argmax(dim=1)                       # (m, 2b)
-        cperm = torch.argsort(key, dim=1, stable=True)
-        rot = torch.gather(rot, 2, cperm[:, None, :].expand_as(rot))
-        # one Newton-Schulz step, rot (3 I - rot^T rot) / 2: the kernel's
-        # rotations, products of some w^2 plane rotations each rounded on
-        # its own, are orthogonal to ~1e-14 (a library eigh's to ~3e-15),
-        # and without the step the spectrum drifts by ~1e-13 ||A|| over
-        # the rounds; two (m, 2b, 2b) products, ~2 % of a round's work
-        rot = 1.5 * rot - 0.5 * torch.bmm(rot, torch.bmm(rot.transpose(1, 2),
-                                                         rot))
+        rot = _rotations(x[rows[:, :, None], rows[:, None, :]])
         flat = rows.reshape(-1)
         _rot_rows(x, flat, rot)
         _rot_rows(x.T, flat, rot)                           # two-sided
@@ -262,3 +269,143 @@ def block_jacobi_eigh(a: torch.Tensor, block: int = 64, sweeps: int = 0):
     d = x.diagonal()
     perm = torch.argsort(d, stable=True)[:n]   # the sentinels sort last
     return d[perm], v[:n, perm]
+
+
+# ---------------------------------------------------------------------------
+# on a process grid
+# ---------------------------------------------------------------------------
+
+def block_jacobi_on_grid(a: pm.DistMatrix, block: int = 64, sweeps: int = 0,
+                         n_vec: Optional[int] = None) -> pm.ColumnShares:
+    """:func:`block_jacobi_eigh` of the grid matrix ``a`` (sentinel on its
+    padding), its ``n_vec`` lowest pairs as this rank's column shares.
+
+    The matrix goes from its 2D blocks to **block columns** once: rank r
+    holds the m / P tournament pairs ``share(m, P, r)`` (positions of the
+    circle method) with both block columns of each, whole, and a run of
+    V's rows.  A round: the pair blocks are local, D2 runs on this
+    rank's pairs, one ``all_reduce`` of zeroed slots gives every rank all
+    m rotations (2 n b words), and then G^T X on this rank's columns, X G
+    on its pairs and V G on its rows are local.  The tournament's ring
+    shift (block 0 fixed, the rest one place on) moves one block column
+    each way between neighbouring ranks (:func:`~eigenkernel_tpu_torch.
+    parallel.mesh.swap`, even pairs of ranks first): at most 3
+    collectives a round.  At the end the diagonal is gathered and V's
+    rows stream past every rank, which keeps its columns.  The matrix is
+    padded to a multiple of 2 b P (decoupled sentinels) so that every
+    rank holds m / P pairs; b is at most n_m / (2 P)."""
+    grid = a.grid
+    P, me = grid.size, grid.rank
+    n_m, dtype, dev = a.n_m, a.local.dtype, a.local.device
+    n_vec = a.n if n_vec is None else int(n_vec)
+    b = max(1, min(block, n_m // (2 * P)))
+    big = pm.pad_to(n_m, 2 * b * P)
+    nb, m = big // b, big // (2 * b)
+    if sweeps <= 0:
+        sweeps = 12 if dtype == torch.float64 else 8
+    pairs = _tournament(nb)                          # (rounds, m, 2)
+    n_rounds = pairs.shape[0]
+    lo, hi = pm.share(m, P, me)
+    w = 2 * (hi - lo) * b                            # this rank's columns
+    cuts = [pm.share(m, P, q)[0] for q in range(P)]
+
+    def holders(t):
+        """(holder rank, its local slot) of every block in round t."""
+        pair = np.empty(nb, np.int64)
+        slot = np.empty(nb, np.int64)
+        pair[pairs[t].reshape(-1)] = np.repeat(np.arange(m), 2)
+        rank = np.searchsorted(cuts, pair, side="right") - 1
+        slot[pairs[t].reshape(-1)] = np.tile([0, 1], m)
+        return rank, 2 * (pair - np.asarray(cuts)[rank]) + slot
+
+    def columns(t):
+        """The global column of each of this rank's columns in round t."""
+        blocks = torch.as_tensor(pairs[t, lo:hi].reshape(-1), device=dev)
+        return (blocks[:, None] * b + torch.arange(b, device=dev)).reshape(-1)
+
+    # block columns from every rank's 2D block in turn
+    x = torch.zeros((big, w), dtype=dtype, device=dev)
+    gcol = columns(0)
+    nr, nc = a.local.shape
+    for q, blk in pm.rank_shares(a.local, grid, [(nr, nc)] * P):
+        qr, qc = (q // grid.C) * nr, (q % grid.C) * nc
+        hit = (gcol >= qc) & (gcol < qc + nc)
+        x[qr:qr + nr, hit] = blk[:, gcol[hit] - qc]
+    if big > n_m:
+        mu = gershgorin_sentinel(a, grid)
+        pad = (gcol >= n_m).nonzero()[:, 0]
+        x[gcol[pad], pad] = mu.to(dtype)
+    v0, v1 = pm.share(big, P, me)
+    v = torch.zeros((v1 - v0, big), dtype=dtype, device=dev)
+    v[torch.arange(v1 - v0, device=dev), torch.arange(v0, v1, device=dev)] = 1
+    if P > 1:
+        pm.make_neighbour_groups(grid)
+    rows_tab = torch.as_tensor(_pair_rows(pairs, b), dtype=torch.int64,
+                               device=dev)
+    lcols = torch.arange(w, device=dev).view(hi - lo, 2 * b)
+    total = sweeps * n_rounds
+    for it in range(total):
+        t = it % n_rounds
+        rows = rows_tab[t]                                   # (m, 2b)
+        rot = _rotations(x[rows[lo:hi, :, None], lcols[:, None, :]])
+        rot_all = pm.gather_slots(rot, slice(lo, hi), (m, 2 * b, 2 * b),
+                                  grid)
+        flat = rows.reshape(-1)
+        _rot_rows(x, flat, rot_all)                          # G^T X
+        _rot_rows(x.T, lcols.reshape(-1), rot)               # X G
+        _rot_rows(v.T, flat, rot_all)                        # V G
+        if it + 1 < total:
+            x = _ring_shift(x, holders(t), holders((t + 1) % n_rounds),
+                            pairs[(t + 1) % n_rounds, lo:hi].reshape(-1),
+                            b, grid)
+    gcol = columns((total - 1) % n_rounds)
+    d = pm.gather_slots(x[gcol, torch.arange(w, device=dev)], gcol, (big,),
+                        grid)
+    del x
+    # the n_vec lowest (the sentinels sort last), V's rows streamed past
+    perm = torch.argsort(d, stable=True)[:n_vec]
+    c0, c1 = pm.share(n_vec, P, me)
+    out = torch.zeros((n_m, c1 - c0), dtype=dtype, device=dev)
+    shapes = [(pm.share(big, P, q)[1] - pm.share(big, P, q)[0], big)
+              for q in range(P)]
+    for q, vq in pm.rank_shares(v, grid, shapes):
+        r0, r1 = pm.share(big, P, q)
+        r1 = min(r1, n_m)
+        if r1 > r0:
+            out[r0:r1] = vq[:r1 - r0, perm[c0:c1]]
+    return pm.ColumnShares(d[perm], out, torch.arange(c0, c1, device=dev))
+
+
+def _ring_shift(x, now, then, blocks, b: int, grid: pm.ProcessGrid):
+    """This rank's block columns of the next round: ``blocks`` (the next
+    round's block at each slot), from its own columns or a neighbour's.
+    ``now`` / ``then``: (holder rank, slot) of every block in this round
+    and the next.  Each neighbour sends the blocks it holds now that
+    this rank holds next, in block order, the even pairs of ranks first
+    (so no chain of waits)."""
+    me = grid.rank
+    out = torch.empty_like(x)
+    mine = [s for s, blk in enumerate(blocks) if now[0][blk] == me]
+    for s in mine:
+        out[:, s * b:(s + 1) * b] = x[:, now[1][blocks[s]] * b:
+                                      (now[1][blocks[s]] + 1) * b]
+    first = me + 1 if me % 2 == 0 else me - 1
+    for peer in (first, 2 * me - first):
+        if not 0 <= peer < grid.size:
+            continue
+        give = sorted(blk for blk in np.nonzero(now[0] == me)[0]
+                      if then[0][blk] == peer)
+        take = sorted(blk for blk in blocks if now[0][blk] == peer)
+        if len(give) != len(take):
+            raise RuntimeError(f"ring shift: rank {me} gives {len(give)} "
+                               f"blocks to rank {peer} and takes "
+                               f"{len(take)}")
+        if not give:
+            continue
+        got = pm.swap(torch.stack([x[:, now[1][blk] * b:
+                                      (now[1][blk] + 1) * b]
+                                   for blk in give]), grid, peer)
+        for blk, col in zip(take, got):
+            s = int(np.nonzero(blocks == blk)[0][0])
+            out[:, s * b:(s + 1) * b] = col
+    return out

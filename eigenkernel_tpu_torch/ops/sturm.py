@@ -34,22 +34,68 @@ def _e2(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros(1, dtype=d.dtype, device=d.device), e * e])
 
 
-def _sturm_count(d: torch.Tensor, e2: torch.Tensor, x: torch.Tensor,
-                 pivmin: float) -> torch.Tensor:
-    """#{eigenvalues < x} for every entry of ``x`` (any shape), int64."""
-    shape = x.shape
-    x = x.reshape(-1)
-    dm = d[:, None] - x[None, :]                  # (n, m): d_i - x
-    floor = torch.full_like(x, pivmin)
-    q = torch.ones_like(x)
-    cnt = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
-    neg_floor = -floor
-    for i in range(d.shape[0]):
+GRAPH_ROWS = 128  # rows a CUDA graph of the plain count replays
+
+
+def _count_rows(dm, e2, q, cnt, floor, neg_floor, pivmin: float):
+    """The recurrence over the rows of ``dm`` (rows, m) and ``e2``: returns
+    the last q, counts into ``cnt`` in place."""
+    for i in range(dm.shape[0]):
         q = dm[i] - e2[i] / q
         neg = q < 0             # the floor keeps the sign: neg is q < 0 after
         q = torch.where(q.abs() < pivmin, torch.where(neg, neg_floor, floor),
                         q)
         cnt += neg
+    return q
+
+
+_GRAPHS: dict = {}
+
+
+def _count_graph(m: int, dtype, dev, pivmin: float):
+    """A CUDA graph of :func:`_count_rows` over GRAPH_ROWS rows of (m,)
+    points, on static buffers (dm, e2, q, cnt, floor, neg_floor)."""
+    key = (m, dtype, dev, pivmin)
+    if key not in _GRAPHS:
+        dm = torch.zeros((GRAPH_ROWS, m), dtype=dtype, device=dev)
+        e2 = torch.zeros(GRAPH_ROWS, dtype=dtype, device=dev)
+        q = torch.ones(m, dtype=dtype, device=dev)
+        cnt = torch.zeros(m, dtype=torch.int64, device=dev)
+        floor = torch.full((m,), pivmin, dtype=dtype, device=dev)
+        neg_floor = -floor
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            q.copy_(_count_rows(dm, e2, q, cnt, floor, neg_floor, pivmin))
+        _GRAPHS[key] = (graph, dm, e2, q, cnt, floor, neg_floor)
+    return _GRAPHS[key]
+
+
+def _sturm_count(d: torch.Tensor, e2: torch.Tensor, x: torch.Tensor,
+                 pivmin: float) -> torch.Tensor:
+    """#{eigenvalues < x} for every entry of ``x`` (any shape), int64.  On
+    a CUDA tensor the rows go GRAPH_ROWS at a time through one CUDA graph
+    of the same operations (a launch a chunk, not ~7 a row)."""
+    shape = x.shape
+    x = x.reshape(-1)
+    dm = d[:, None] - x[None, :]                  # (n, m): d_i - x
+    n, m = dm.shape
+    full = n // GRAPH_ROWS * GRAPH_ROWS if x.is_cuda else 0
+    if full:
+        graph, dm_s, e2_s, q, cnt, floor, neg_floor = _count_graph(
+            m, x.dtype, x.device, pivmin)
+        q.fill_(1.0)
+        cnt.zero_()
+        for r0 in range(0, full, GRAPH_ROWS):
+            dm_s.copy_(dm[r0:r0 + GRAPH_ROWS])
+            e2_s.copy_(e2[r0:r0 + GRAPH_ROWS])
+            graph.replay()
+        q, cnt = q.clone(), cnt.clone()
+    else:
+        floor = torch.full_like(x, pivmin)
+        neg_floor = -floor
+        q = torch.ones_like(x)
+        cnt = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    _count_rows(dm[full:], e2[full:], q, cnt, floor, neg_floor, pivmin)
     return cnt.reshape(shape)
 
 

@@ -24,6 +24,10 @@ Counterpart of ``eigenkernel_tpu/parallel/mesh.py``:
   broadcast along the process rows and columns), a block times a
   replicated tall operand summed into one zero-padded ``all_reduce``, and
   a transpose by per-rank broadcasts.
+* ``times_columns`` (a block matrix times each rank's own columns),
+  ``submatrix`` (a principal block onto a DistMatrix of its own) and
+  ``swap`` (a neighbouring rank's tensor, over a group of the two): the
+  products and moves of the ``jacobi``, ``qdwh`` and mixed grid paths.
 
 Every sharded step is written on ``all_reduce`` and ``broadcast`` alone:
 torch's backend table documents gloo as taking CUDA tensors for those two
@@ -90,6 +94,7 @@ class ProcessGrid:
     row_group: Any = None
     col_group: Any = None
     stats: CollectiveStats = field(default_factory=CollectiveStats)
+    neighbour_groups: Any = None    # make_neighbour_groups: {r, r + 1}
 
     @property
     def size(self) -> int:
@@ -182,6 +187,35 @@ def broadcast(x: torch.Tensor, grid: ProcessGrid, src: int,
     grid.stats.calls += 1
     grid.stats.bytes += x.numel() * x.element_size()
     return x
+
+
+def make_neighbour_groups(grid: ProcessGrid) -> None:
+    """Make the groups of ranks {r, r + 1} that :func:`swap` uses, once a
+    grid; every rank must call it at the same point."""
+    if grid.neighbour_groups is None:
+        grid.neighbour_groups = [dist.new_group([r, r + 1])
+                                 for r in range(grid.size - 1)]
+
+
+def swap(part: torch.Tensor, grid: ProcessGrid, peer: int) -> torch.Tensor:
+    """``peer``'s ``part`` (the same shape as this rank's), for a peer
+    next to this rank (``|peer - rank| == 1``): one ``all_reduce`` over
+    the two of them (:func:`make_neighbour_groups`) of a zeroed pair of
+    slots, each filling its own."""
+    lo = min(grid.rank, peer)
+    if max(grid.rank, peer) != lo + 1:
+        raise ValueError(f"swap: ranks {grid.rank} and {peer} are not "
+                         f"neighbours")
+    group = grid.neighbour_groups[lo]
+    buf = torch.zeros((2,) + tuple(part.shape), dtype=part.dtype,
+                      device=part.device)
+    buf[int(grid.rank != lo)] = part
+    t0 = time.perf_counter()
+    dist.all_reduce(buf, group=group)
+    grid.stats.seconds += time.perf_counter() - t0
+    grid.stats.calls += 1
+    grid.stats.bytes += buf.numel() * buf.element_size()
+    return buf[int(peer != lo)]
 
 
 def barrier(grid: ProcessGrid) -> None:
@@ -386,6 +420,56 @@ def transpose(x: DistMatrix) -> DistMatrix:
             out[qc + b0 - x.row0:qc + b1 - x.row0,
                 qr + a0 - x.col0:qr + a1 - x.col0] = blk[a0:a1, b0:b1].T
     return x.with_local(out)
+
+
+def times_columns(x: DistMatrix, z: torch.Tensor) -> torch.Tensor:
+    """``x @ z`` with ``z`` (n_m, w) this rank's own columns (each rank
+    its own, e.g. a :class:`ColumnShares`' vectors), whole on this rank:
+    each rank's block of x broadcast in turn (:func:`rank_shares`), every
+    rank adding the block's product with its rows of z.  P broadcasts of
+    a block; a rank holds its block and one other."""
+    grid = x.grid
+    nr, nc = x.local.shape
+    out = z.new_zeros((x.n_m, z.shape[1]))
+    for q, blk in rank_shares(x.local, grid, [(nr, nc)] * grid.size):
+        r0, c0 = (q // grid.C) * nr, (q % grid.C) * nc
+        out[r0:r0 + nr].addmm_(blk, z[c0:c0 + nc])
+    return out
+
+
+def submatrix(x: DistMatrix, lo: int, hi: int) -> DistMatrix:
+    """``x[lo:hi, lo:hi]`` as a DistMatrix of its own on the same grid,
+    zero-padded to its :func:`padded_dim`: each rank's block of x
+    broadcast in turn, every rank keeping the entries of its new block."""
+    grid = x.grid
+    n = hi - lo
+    n_m = padded_dim(n, grid)
+    nr, nc = x.local.shape
+    r0, r1, c0, c1 = _block_bounds(n_m, grid)
+    out = torch.zeros((r1 - r0, c1 - c0), dtype=x.local.dtype,
+                      device=x.local.device)
+    # this rank's new block reads x's rows and columns lo + [r0, r1) etc.
+    want_r = (lo + r0, lo + min(r1, n))
+    want_c = (lo + c0, lo + min(c1, n))
+    for q, blk in rank_shares(x.local, grid, [(nr, nc)] * grid.size):
+        qr, qc = (q // grid.C) * nr, (q % grid.C) * nc
+        a0, a1 = span(*want_r, qr, nr)
+        b0, b1 = span(*want_c, qc, nc)
+        if a1 > a0 and b1 > b0:
+            out[qr + a0 - lo - r0:qr + a1 - lo - r0,
+                qc + b0 - lo - c0:qc + b1 - lo - c0] = blk[a0:a1, b0:b1]
+    return DistMatrix(local=out, n=n, grid=grid)
+
+
+def diagonal(x: DistMatrix) -> torch.Tensor:
+    """The (n_m,) diagonal of ``x`` whole on every rank (one
+    ``all_reduce`` of slots)."""
+    nr, nc = x.local.shape
+    rows = torch.arange(x.row0, x.row0 + nr, device=x.local.device)
+    at = rows - x.col0
+    here = (at >= 0) & (at < nc)
+    return gather_slots(x.local[here, at[here]], rows[here], (x.n_m,),
+                        x.grid)
 
 
 def matmul(a: DistMatrix, b: DistMatrix, *, trans_a: bool = False,

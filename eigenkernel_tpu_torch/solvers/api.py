@@ -15,7 +15,11 @@ its padding diagonal (JAX ``api.py:43-83``) and the generalized
 reduction and recovery run on the grid.  ``lapack``, ``eigh`` and
 ``general_eigh``'s core run replicated on every rank, as in the JAX
 package, and every rank keeps its share of the columns.  The ``jacobi``
-and ``qdwh`` cores and ``dtype='mixed'`` refuse (:func:`mesh_refusal`).
+core runs on block columns (``ops/jacobi.py``), the ``qdwh`` core's
+recursion on the grid (``ops/qdwh.py``), and ``dtype='mixed'`` refines
+the grid's float32 column shares against float64 blocks of the caller's
+matrices (``ops/refine.py::refine_on_grid``): every registry name runs on
+a grid, in every dtype.
 """
 
 from __future__ import annotations
@@ -32,29 +36,13 @@ from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
 from eigenkernel_tpu_torch.core.types import EigenPairs
 from eigenkernel_tpu_torch.obs.events import EventLog
 from eigenkernel_tpu_torch.obs.mem import memstats
-from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs
+from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs, refine_on_grid
 from eigenkernel_tpu_torch.parallel import mesh as pm
 from eigenkernel_tpu_torch.solvers import pipelines as pl
 from eigenkernel_tpu_torch.solvers.registry import (AUTO_NAMES, get_spec,
                                                     resolve_auto)
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
-# registry names whose core has no grid version yet (ROADMAP A.6, 7d)
-MESH_REFUSED = ("jacobi", "general_jacobi", "qdwh_dc", "general_qdwh_dc")
-
-
-class NotPortedOnMeshError(ValueError):
-    pass
-
-
-def mesh_refusal(solver: str, mixed: bool = False) -> Optional[str]:
-    """Why ``solver`` cannot run on a process grid yet, or None."""
-    where = "(ROADMAP A.6, slice 7d)"
-    if solver in MESH_REFUSED:
-        return f"{solver} on a mesh is not ported yet {where}"
-    if mixed:
-        return f"--dtype mixed on a mesh is not ported yet {where}"
-    return None
 
 
 def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
@@ -121,9 +109,6 @@ def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
         if sel in ("one_stage", "two_stage"):
             core = sel
     if mesh is not None:
-        why = mesh_refusal(solver, mixed)
-        if why is not None:
-            raise NotPortedOnMeshError(why)
         return _solve_grid(a, b, spec, core, n, n_vec, block_size, log,
                            dtype, mesh)
     if a.shape[0] != a.shape[1] or (b is not None
@@ -178,9 +163,13 @@ def _on_grid(x, grid: pm.ProcessGrid, dtype: torch.dtype,
 def _solve_grid(a, b, spec, core: str, n: int, n_vec: int, block_size: int,
                 log: Optional[EventLog], dtype: Any,
                 grid: pm.ProcessGrid) -> EigenPairs:
-    """A solve on ``grid`` of a name :func:`mesh_refusal` lets through."""
+    """A solve on ``grid``; ``dtype='mixed'`` runs the pipeline in float32
+    and refines this rank's columns against float64 blocks of ``a`` (and
+    ``b``) as given (a float64 DistMatrix, e.g. the CLI's, is taken as
+    it is)."""
     src = a.local if isinstance(a, pm.DistMatrix) else a
-    torch_dtype = _as_dtype(dtype, src)
+    mixed = isinstance(dtype, str) and dtype == "mixed"
+    torch_dtype = torch.float32 if mixed else _as_dtype(dtype, src)
     set_matmul_precision_highest()
     dm = _on_grid(a, grid, torch_dtype, n)
     panel = block_size if block_size > 0 else DEFAULT_BLOCK_SIZE
@@ -197,9 +186,20 @@ def _solve_grid(a, b, spec, core: str, n: int, n_vec: int, block_size: int,
         del bm
     del dm
     keep = out.cols < n_vec
-    return EigenPairs(values=out.values[:n_vec],
-                      vectors=out.vectors[:n, keep],
+    out = pm.ColumnShares(out.values[:n_vec], out.vectors[:, keep],
+                          out.cols[keep])
+    if mixed:
+        # the float32 copies go first, as on one device
+        t0 = time.time()
+        out = out._replace(vectors=out.vectors.to(torch.float64))
+        a64 = _on_grid(a, grid, torch.float64, n)
+        b64 = None if b is None else _on_grid(b, grid, torch.float64, n)
+        memstats("solve:pre_refine")
+        out = refine_on_grid(a64, out, b64)
+        del a64, b64
+        ctx.tick("solve:refine", t0)
+    return EigenPairs(values=out.values, vectors=out.vectors[:n],
                       meta={"solver": spec.name, "core": core,
                             "panel": panel, "device": str(grid.device),
                             "grid": (grid.R, grid.C)},
-                      grid=grid, cols=out.cols[keep])
+                      grid=grid, cols=out.cols)

@@ -29,8 +29,8 @@ reference's hierarchical names (``solve:reduce_elpa``,
 ``torch.cuda.synchronize()`` before each clock stops, and its model
 GFLOP/s as ``!<stage>_Gflops``.
 
-On a process grid (``SolverContext.mesh``) the one-stage and two-stage
-cores run sharded (the matrix a
+On a process grid (``SolverContext.mesh``) the one-stage, two-stage,
+``jacobi`` and ``qdwh`` cores run sharded (the matrix a
 :class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix`, the result a
 :class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`), the ``eigh``
 core replicated on every rank, and the generalized pipeline's reduction
@@ -81,11 +81,11 @@ class SolverContext:
 
 
 def _run(ctx: SolverContext, name: str, fn: Callable, *args,
-         flops: Optional[float] = None) -> Any:
+         flops: Optional[float] = None, **kwargs) -> Any:
     t0 = time.time()
     # the stage's span in a torch.profiler trace (--profile)
     with torch.profiler.record_function(name):
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         ctx.tick(name, t0, flops=flops)
     return out
 
@@ -166,20 +166,33 @@ def sentinelize(a: pm.DistMatrix) -> pm.DistMatrix:
     return pm.fill_padding_diagonal(a, gershgorin_sentinel(a, a.grid))
 
 
-def sep_jacobi(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+def sep_jacobi(ctx: SolverContext, a, n_vec: int):
     """Block-Jacobi core (``ops/jacobi.py``): no sequential panel
     recurrence, a batched pair eigh (kernel D2) and full-width products a
-    round; the panel width is the block width."""
+    round; the panel width is the block width.  On a grid the matrix is
+    held in block columns, a rank's tournament pairs each
+    (``jacobi.block_jacobi_on_grid``)."""
+    if ctx.mesh is not None:
+        return _run(ctx, "sep:jacobi", jacobi.block_jacobi_on_grid, a,
+                    ctx.block_size, 0, n_vec, flops=fl.jacobi(a.n_m))
     w, z = _run(ctx, "sep:jacobi", jacobi.block_jacobi_eigh, a,
                 ctx.block_size, flops=fl.jacobi(a.shape[0]))
     return w[:n_vec], z[:, :n_vec]
 
 
-def sep_qdwh(ctx: SolverContext, a: torch.Tensor, n_vec: int):
+def sep_qdwh(ctx: SolverContext, a, n_vec: int):
     """QDWH spectral divide-and-conquer core (``ops/qdwh.py``), a host
     recursion on exact sizes.  The JAX core passes its GEMM block to the
     Cholesky and triangular solves; here they are whole-matrix
-    ``torch.linalg`` calls, so there is no block to pass."""
+    ``torch.linalg`` calls on one device, so there is no block to pass.
+    On a grid the splits run on DistMatrix ops with the grid's panel
+    width (``qdwh.spectral_dc_on_grid``)."""
+    if ctx.mesh is not None:
+        out = _run(ctx, "sep:qdwh_dc", qdwh.spectral_dc_on_grid, a,
+                   block=ctx.gemm_block, flops=fl.qdwh_dc(a.n_m))
+        keep = out.cols < n_vec
+        return pm.ColumnShares(out.values[:n_vec], out.vectors[:, keep],
+                               out.cols[keep])
     w, z = _run(ctx, "sep:qdwh_dc", qdwh.spectral_dc_eigh, a,
                 flops=fl.qdwh_dc(a.shape[0]))
     return w[:n_vec], z[:, :n_vec]

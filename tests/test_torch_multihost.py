@@ -19,8 +19,6 @@ from eigenkernel_tpu_torch.cli import main as port_main
 from eigenkernel_tpu_torch.core.types import MatrixInfo, SparseMatrix
 from eigenkernel_tpu_torch.io.matrix_market import write_matrix
 from eigenkernel_tpu_torch.parallel import multihost as mh
-from eigenkernel_tpu_torch.solvers.api import mesh_refusal
-from eigenkernel_tpu_torch.solvers.registry import SOLVERS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 120
@@ -113,18 +111,23 @@ def test_bcast_round_trips(tmp_path):
         assert bool(got["failed"])
 
 
-@pytest.mark.parametrize("solver,k", [("scalapack", None),
-                                      ("scalapack_select", 6),
-                                      ("lapack", None)])
-def test_two_process_cli(tmp_path, solver, k):
+@pytest.mark.parametrize("solver,k,extra", [
+    pytest.param("scalapack", None, [], id="scalapack-None"),
+    pytest.param("scalapack_select", 6, [], id="scalapack_select-6"),
+    pytest.param("lapack", None, [], id="lapack-None"),
+    pytest.param("jacobi", None, ["--block-size", "16"], id="jacobi-None"),
+    pytest.param("qdwh_dc", None, [], id="qdwh_dc-None"),
+    pytest.param("scalapack", None, ["--dtype", "mixed"],
+                 id="scalapack-mixed")])
+def test_two_process_cli(tmp_path, solver, k, extra):
     n = 60
     mtx = tmp_path / "A.mtx"
     _write_mtx(mtx, n, 41)
     kk = n if k is None else k
-    argv = ["--platform", "cpu", "-s", solver, "-c", "-1", "-t", f"1,{kk}",
-            "-d", "vec", "-p", "1-4", str(mtx)]
+    argv = ["--platform", "cpu", *extra, "-s", solver, "-c", "-1", "-t",
+            f"1,{kk}", "-d", "vec", "-p", "1-4", str(mtx)]
     if k is not None:
-        argv[4:4] = ["-n", str(k)]
+        argv[-9:-9] = ["-n", str(k)]
     two = tmp_path / "two"
     two.mkdir()
     codes, outs = _run_processes(two, ["--mesh", "1,2", *argv])
@@ -142,6 +145,8 @@ def test_two_process_cli(tmp_path, solver, k):
     ev1 = np.loadtxt(one / "eigenvalues.dat")
     assert ev2.shape == (kk, 2)
     assert np.abs(ev2[:, 1] - ev1[:, 1]).max() <= 1e-12
+    ref = np.linalg.eigvalsh(_read_dense(mtx))[:kk]
+    assert np.abs(ev2[:, 1] - ref).max() <= 1e-12 * np.abs(ref).max()
     files = sorted(os.listdir(two / "vec"))
     assert files == [f"{j:08d}.dat" for j in range(1, 5)]
     for j in range(1, 5):
@@ -170,12 +175,25 @@ def test_two_process_cli_generalized(tmp_path):
     # -s general_elpa2 on a 1 x 2 grid: B broadcast and densified by block,
     # the elpa reduction, to_band, the chase on both ranks and the
     # sharded back-transform; the B-metric checks run on the grid
+    _two_process_generalized(tmp_path, "general_elpa2", [])
+
+
+@pytest.mark.parametrize("solver,extra", [
+    ("general_jacobi", ["--block-size", "16"]), ("general_qdwh_dc", [])])
+def test_two_process_cli_generalized_extra_cores(tmp_path, solver, extra):
+    # the same for the cores of slice 7d: block columns and D2's plain
+    # version on each rank's pairs (general_jacobi), the recursion's leaf
+    # gathered (general_qdwh_dc)
+    _two_process_generalized(tmp_path, solver, extra)
+
+
+def _two_process_generalized(tmp_path, solver, extra):
     n = 70
     _write_mtx(tmp_path / "A.mtx", n, 43)
     b = _write_spd(tmp_path / "B.mtx", n, 44)
     a = _read_dense(tmp_path / "A.mtx")
     codes, outs = _run_processes(tmp_path, [
-        "--platform", "cpu", "--mesh", "1,2", "-s", "general_elpa2", "-c",
+        "--platform", "cpu", "--mesh", "1,2", *extra, "-s", solver, "-c",
         "-1", "-t", f"1,{n}", "-d", "vec", "-p", "1-2",
         str(tmp_path / "A.mtx"), str(tmp_path / "B.mtx")])
     assert codes == [0, 0], outs
@@ -195,32 +213,3 @@ def test_two_process_cli_generalized(tmp_path):
         assert abs(v @ b @ v - 1.0) <= 1e-10
         assert abs(ipr[j - 1, 1] - (v ** 4).sum() / (v @ b @ v) ** 2) \
             <= 1e-10 * ipr[j - 1, 1]
-
-
-@pytest.mark.parametrize("argv", [
-    ["-s", "jacobi"], ["-s", "general_jacobi"], ["-s", "qdwh_dc"],
-    ["-s", "general_qdwh_dc"], ["-s", "scalapack", "--dtype", "mixed"]])
-def test_grid_refuses_names_outside_the_slice(tmp_path, monkeypatch, capsys,
-                                              argv):
-    # on two processes these names stop before any process joins a group
-    mtx = tmp_path / "A.mtx"
-    _write_mtx(mtx, 20, 42)
-    files = [str(mtx)]
-    if argv[1].startswith("general_"):
-        _write_spd(tmp_path / "B.mtx", 20, 45)
-        files.append(str(tmp_path / "B.mtx"))
-    monkeypatch.setenv("EK_NUM_PROCESSES", "2")
-    monkeypatch.chdir(tmp_path)
-    assert port_main(["--platform", "cpu", *argv, *files]) == 1
-    err = capsys.readouterr().err
-    assert "[Error]" in err and "on a mesh is not ported yet" in err
-    assert not torch.distributed.is_initialized()
-    assert not (tmp_path / "eigenvalues.dat").exists()
-
-
-def test_grid_refuses_exactly_the_names_of_slice_7d(monkeypatch):
-    monkeypatch.setenv("EK_SELECT_CORE", "two_stage")
-    refused = {name for name in SOLVERS if mesh_refusal(name)}
-    assert refused == {"jacobi", "general_jacobi", "qdwh_dc",
-                       "general_qdwh_dc"}
-    assert mesh_refusal("scalapack", mixed=True) is not None

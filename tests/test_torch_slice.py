@@ -167,9 +167,11 @@ def test_cli_errors_exit_1(tmp_path, monkeypatch, capsys, case):
         argv = argv[2:]                  # the default platform is cuda
     elif case == "unknown_solver":
         argv[3] = "nope"
-    elif case == "not_ported_core":   # jacobi on a grid is not ported yet
-        argv = ["--platform", "cpu", "--mesh", "1,2", "-s", "jacobi",
-                str(mtx)]
+    elif case == "not_ported_core":   # a grid of two processes on one card
+        monkeypatch.setenv("EK_NUM_PROCESSES", "2")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        argv = ["--mesh", "1,2", "-s", "jacobi", str(mtx)]
     elif case == "mixed_dtype":       # -n on a core that takes all pairs
         argv = ["--dtype", "mixed", "--platform", "cpu", "-s", "jacobi",
                 "-n", "3", str(mtx)]

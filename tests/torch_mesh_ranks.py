@@ -1,6 +1,6 @@
 """Rank processes for the port's grid tests (``test_torch_mesh.py``,
-``test_torch_mesh_gen.py``, ``test_torch_multihost.py``,
-``test_torch_cuda.py``).
+``test_torch_mesh_gen.py``, ``test_torch_mesh_extra.py``,
+``test_torch_multihost.py``, ``test_torch_cuda.py``).
 
 :func:`run_ranks` starts ``world`` spawned processes that join one gloo
 group on 127.0.0.1 at a free port, each with one thread, and runs a
@@ -112,12 +112,41 @@ def _env(values):
                 os.environ[k] = v
 
 
-def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
-    """Solve each (tag, solver, n_vec, dtype, a[, b[, env]]) of ``cases``
-    on the grid (B, when given, a generalized problem; ``env`` the
-    environment of the solve) and write the eigenpairs whole, with the
-    verifier's numbers (residual average and max, orthogonality; B
-    metric for a generalized problem) and the ipratios."""
+def _Largest():
+    """A dispatch mode that keeps the most elements of any new tensor an
+    op made while it is on (``most``; off while ``paused``)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        most = 0
+        paused = False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            result = func(*args, **(kwargs or {}))
+            if not self.paused:
+                # new storage only: a view of an input is no allocation
+                held = {t.untyped_storage().data_ptr() for t in
+                        torch.utils._pytree.tree_leaves((args, kwargs))
+                        if isinstance(t, torch.Tensor)}
+                for t in torch.utils._pytree.tree_leaves(result):
+                    if isinstance(t, torch.Tensor) and \
+                            t.untyped_storage().data_ptr() not in held:
+                        self.most = max(self.most, t.numel())
+            return result
+
+    return Largest()
+
+
+def solve_cases(rank: int, shape, cases, out_dir: str,
+                path: str = "") -> None:
+    """Solve each (tag, solver, n_vec, dtype, a[, b[, env[, options]]])
+    of ``cases`` on the grid (B, when given, a generalized problem;
+    ``env`` the environment of the solve; ``options`` more keywords of
+    ``solve``; dtype "mixed" hands the solve float64 blocks) and write
+    the eigenpairs whole, with the verifier's numbers (residual average
+    and max, orthogonality; B metric for a generalized problem) and the
+    ipratios."""
     import torch
 
     from eigenkernel_tpu_torch.parallel import mesh as pm
@@ -129,12 +158,14 @@ def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
     grid = _grid(shape)
     out = {}
     for tag, solver, n_vec, dtype, a, *more in cases:
-        b, env = (list(more) + [None, {}])[:2]
-        dt = getattr(torch, dtype)
+        b, env, options = (list(more) + [None, {}, {}][len(more):])[:3]
+        dt = torch.float64 if dtype == "mixed" else getattr(torch, dtype)
         with _env(env):
             dm = pm.distribute(a, grid, dt)
             bm = None if b is None else pm.distribute(b, grid, dt)
-            pairs = solve(dm, bm, solver=solver, n_vec=n_vec, mesh=grid)
+            pairs = solve(dm, bm, solver=solver, n_vec=n_vec, mesh=grid,
+                          dtype=dtype if dtype == "mixed" else None,
+                          **options)
         w, v = _whole(pairs.values, pairs.vectors, pairs.cols, grid)
         k = w.shape[0]
         _, ave, mx = eval_residual_norm(dm, pairs, k, bm)
@@ -142,7 +173,7 @@ def solve_cases(rank: int, shape, cases, out_dir: str) -> None:
         out[f"{tag}/check"] = np.array([ave, mx,
                                         eval_orthogonality(pairs, 1, k, bm)])
         out[f"{tag}/ipr"] = get_ipratios(pairs, bm)
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    np.savez(path or os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
 def generalized_modules(rank: int, shape, inputs: dict, out_dir: str) -> None:
@@ -218,6 +249,83 @@ def generalized_modules(rank: int, shape, inputs: dict, out_dir: str) -> None:
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 
 
+def extra_cases(rank: int, shape, cases, out_dir: str, base: int,
+                watch=()) -> None:
+    """:func:`solve_cases` for the cores of slice 7d (``jacobi``, ``qdwh``,
+    the mixed refinement), with the qdwh recursion's base at ``base``;
+    also writes the sizes of the blocks the grid split (``<tag>/splits``,
+    negative where a split was refused) and, for the tags in ``watch``,
+    the most elements of any tensor the jacobi core or the grid
+    refinement made on this rank (``<tag>/largest``; D2's plain version
+    unwatched: its tensors are a rank's pair blocks, and watching its
+    many small ops costs seconds), with the matrix dimension the jacobi
+    core padded to (``<tag>/big``) or the columns the refinement was
+    handed on this rank (``<tag>/width``)."""
+    import functools
+
+    from eigenkernel_tpu_torch.ops import jacobi, qdwh
+    from eigenkernel_tpu_torch.solvers import api
+
+    mode = _Largest()
+    seen = {"splits": [], "big": 0, "width": 0}
+    grid_split = qdwh._split_grid
+    on_grid = qdwh.spectral_dc_on_grid
+    jac, ref, pair = (jacobi.block_jacobi_on_grid, api.refine_on_grid,
+                      jacobi.pair_eigh)
+
+    def counting(x, *args):
+        out = grid_split(x, *args)
+        seen["splits"].append(x.n_m if out is not None else -x.n_m)
+        return out
+
+    def watched(fn):
+        def call(a, v, *args, **kwargs):
+            P = a.grid.size
+            if fn is jac:
+                b = max(1, min(v, a.n_m // (2 * P)))
+                seen["big"] = -(-a.n_m // (2 * b * P)) * 2 * b * P
+            else:
+                seen["width"] = v.vectors.shape[1]
+            with contextlib.ExitStack() as stack:
+                if watching:
+                    stack.enter_context(mode)
+                return fn(a, v, *args, **kwargs)
+        return call
+
+    def unwatched(*args):
+        mode.paused = True
+        try:
+            return pair(*args)
+        finally:
+            mode.paused = False
+
+    qdwh._split_grid = counting
+    qdwh.spectral_dc_on_grid = functools.partial(on_grid, base=base)
+    jacobi.block_jacobi_on_grid = watched(jac)
+    api.refine_on_grid = watched(ref)
+    jacobi.pair_eigh = unwatched
+    try:
+        out = {}
+        for case in cases:
+            tag = case[0]
+            watching = tag in watch
+            seen.update(splits=[], big=0, width=0)
+            mode.most = 0
+            path = os.path.join(out_dir, f"case{rank}.npz")
+            solve_cases(rank, shape, [case], out_dir, path)
+            out.update(np.load(path))
+            out[f"{tag}/splits"] = np.array(seen["splits"], dtype=np.int64)
+            out[f"{tag}/largest"] = np.array(mode.most)
+            out[f"{tag}/big"] = np.array(seen["big"])
+            out[f"{tag}/width"] = np.array(seen["width"])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        qdwh._split_grid = grid_split
+        qdwh.spectral_dc_on_grid = on_grid
+        jacobi.block_jacobi_on_grid, api.refine_on_grid = jac, ref
+        jacobi.pair_eigh = pair
+
+
 def _largest_in_pipeline(a, b, grid, gemm_block: int, method: str) -> int:
     """The most elements of any tensor the ops of one ``general_elpa2``
     pipeline under ``EK_BACKTRANSFORM=method`` made on this rank (torch's
@@ -225,30 +333,10 @@ def _largest_in_pipeline(a, b, grid, gemm_block: int, method: str) -> int:
     reductions' panel width, the chase's reflector store left out: it is
     (n, T, bw) on every rank during the chase, and under ``wf_pallas``
     whole, with its group-major copies, for B4."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from eigenkernel_tpu_torch.ops import chase, wf_bt
     from eigenkernel_tpu_torch.solvers import pipelines as pl
 
-    class Largest(TorchDispatchMode):
-        most = 0
-        paused = False
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            result = func(*args, **(kwargs or {}))
-            if not self.paused:
-                # new storage only: a view of an input is no allocation
-                held = {t.untyped_storage().data_ptr() for t in
-                        torch.utils._pytree.tree_leaves((args, kwargs))
-                        if isinstance(t, torch.Tensor)}
-                for t in torch.utils._pytree.tree_leaves(result):
-                    if isinstance(t, torch.Tensor) and \
-                            t.untyped_storage().data_ptr() not in held:
-                        self.most = max(self.most, t.numel())
-            return result
-
-    mode = Largest()
+    mode = _Largest()
 
     def unwatched(run):
         def call(*args):
