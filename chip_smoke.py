@@ -5,7 +5,8 @@ CUDA card.
     python3 chip_smoke.py            # every phase, on card 0
     python3 chip_smoke.py --cards    # phases 1, 2, 4, 11 and phase 13's
                                      # NCCL runs on every card only (with
-                                     # jacobi on two cards or more)
+                                     # jacobi and phase 16's dry run on
+                                     # two cards or more)
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -164,6 +165,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     solve; the qdwh runs print the blocks the grid split.  In ``--cards``
     mode on two cards or more, the NCCL CLI also runs ``-s jacobi`` on
     phase 12's matrix, against its ``eigvalsh``.
+
+16. The sweep-range chase and the rest of the JAX package's surface: B3
+    over 4 sweep ranges (one launch each, ``EK_CHASE_CHUNKS``) against B3
+    whole, ``torch.equal`` on d, e, HV and HT, at n = 16384 (the window
+    branch, float64 and float32, both timed with CUDA events) and at
+    n = 4096 with ``chase.GRID_CAP`` = 5 (lane striding); the chunked
+    plain version against the chunked kernel at n = 4096 (phase 6's
+    bars); ``general_elpa2`` on phase 11's A and B (n = 4096) on the 2 x 2
+    gloo grid with ``EK_CHASE_CHUNKS=4`` and ``=1`` (the grid's default
+    and one range), eigenvalues bit for bit between the two and within
+    1e-10 ||A||_2 of one device's, each rank's ``sep:band_to_tridiag``
+    peak and solve peak printed by stage; ``entry.dryrun_multichip(4)``
+    (gloo ranks on this card; NCCL on every card under ``--cards``); and
+    ``python -m eigenkernel_tpu_torch.tools.sweep`` over every registry
+    name at n = 1024, float64, on this card, each against phase 4's bars.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -1608,12 +1624,14 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
             with env(**job_env), \
                     capture(tridiag, "tridiag_eigh", limit=1) as tri, \
                     capture(tridiag_solve, "tridiag_solve", limit=1) as b2, \
-                    capture(chase, "banded_to_tridiag", limit=1) as b3, \
+                    capture(chase, "band_to_tridiag_chunked",
+                            limit=1) as b3, \
                     capture(twostage, "apply_chase_q_wavefront", 1,
                             keywords=True) as b4, \
                     capture(twostage, "apply_chase_q_sweeps", 1) as b5, \
                     capture_ends(jacobi, "pair_eigh") as d2, \
-                    grid_core_counts(grid) as core:
+                    grid_core_counts(grid) as core, \
+                    stage_peaks(device) as peaks:
                 t0 = time.time()
                 pairs = solve(dm, bm, solver=solver, n_vec=k, mesh=grid,
                               log=log, dtype=dtype)
@@ -1621,7 +1639,10 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                 seconds = time.time() - t0
             launches = read_launches()
             stats = (grid.stats.calls, grid.stats.seconds, grid.stats.bytes)
-            peak = torch.cuda.max_memory_allocated() \
+            # the solve's peak: each stage's reset of the peak keeps the
+            # peak before it in peaks["_before"]
+            peak = max(torch.cuda.max_memory_allocated(),
+                       peaks.pop("_before", 0)) \
                 if device.type == "cuda" else 0
             kk = pairs.values.shape[0]
             _, _, resid = eval_residual_norm(dm, pairs, kk, bm)
@@ -1632,6 +1653,7 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                    "launches": np.array(json.dumps(launches)),
                    "stats": np.array(stats, dtype=np.float64),
                    "peak": np.array(peak), "seconds": np.array(seconds),
+                   "stage_peaks": np.array(json.dumps(peaks)),
                    "checks": np.array([resid, orth])}
             if solver == "scalapack_select":
                 # the selecting core's (d, e), its eigenvalues (the
@@ -1701,6 +1723,40 @@ def grid_core_counts(grid):
         yield seen
     finally:
         jacobi.block_jacobi_on_grid, qdwh._split_grid = core, split
+
+
+@contextlib.contextmanager
+def stage_peaks(device):
+    """Record each ``sep:`` / reduction / recovery stage's peak device
+    memory (bytes, ``max_memory_allocated`` from the stage's start, what
+    was allocated then included) run through ``pipelines._run`` inside
+    the block, by stage name; the block's overall peak stays readable
+    at its end (each stage's reset keeps the peak before it)."""
+    import torch
+
+    from eigenkernel_tpu_torch.solvers import pipelines, twostage
+
+    seen = {}
+    run = pipelines._run
+    if device.type != "cuda":
+        yield seen
+        return
+
+    def peaked(ctx, name, fn, *args, **kwargs):
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return run(ctx, name, fn, *args, **kwargs)
+        finally:
+            seen[name] = max(seen.get(name, 0),
+                             torch.cuda.max_memory_allocated())
+            seen["_before"] = max(seen.get("_before", 0), before)
+
+    pipelines._run = twostage._run = peaked
+    try:
+        yield seen
+    finally:
+        pipelines._run = twostage._run = run
 
 
 def free_port() -> int:
@@ -2106,6 +2162,188 @@ def phase_mesh_extra(dev, tmp):
     return out
 
 
+def random_lower(n: int, bw: int, dtype, dev, seed: int):
+    """The banded lower storage (n + 2bw, 2bw + 1) of a random symmetric
+    band matrix of semibandwidth ``bw``, made on the card from a seed."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lb = torch.randn((n + 2 * bw, 2 * bw + 1), generator=gen, device=dev,
+                     dtype=dtype)
+    lb[:, :bw] = 0                        # outside the band
+    lb[n:] = 0
+    rows = torch.arange(n + 2 * bw, device=dev)[:, None]
+    cols = rows + torch.arange(2 * bw + 1, device=dev)[None, :] - 2 * bw
+    lb[cols < 0] = 0                      # before column 0
+    return lb
+
+
+def compare_ranges(lb, n, bw, chunks, tag, cap=0, reps=3):
+    """B3 over the sweep ranges of ``chunks`` against B3 whole on the
+    banded storage ``lb``: d, e, HV and HT ``torch.equal``, both timed
+    with CUDA events (the median of 3 batches of ``reps``); launches of
+    the ranged chase counted."""
+    import torch
+
+    from eigenkernel_tpu_torch.obs import flops
+    from eigenkernel_tpu_torch.ops import chase
+
+    old_cap, chase.GRID_CAP = chase.GRID_CAP, cap
+    try:
+        whole = chase.banded_to_tridiag(lb, n, bw)
+        grid_whole = chase.GRID
+        before = chase.LAUNCHES
+        got = chase.band_to_tridiag_chunked(lb, n, bw, chunks)
+        torch.cuda.synchronize()
+        launches = chase.LAUNCHES - before
+        ranges = chase.chase_ranges(n, bw, chunks)
+        check(launches == len(ranges),
+              f"band_chase {tag}: one launch a range ({len(ranges)})")
+        same = all(torch.equal(getattr(got, f), getattr(whole, f))
+                   for f in ("d", "e", "HV", "HT"))
+        check(same, f"band_chase {tag}: {len(ranges)} sweep ranges == the "
+                    f"whole chase, d, e, HV, HT bit for bit")
+        del got
+        ms_whole = time_ms(lambda: chase.banded_to_tridiag(lb, n, bw), reps,
+                           batches=3)
+        ms_ranges = time_ms(lambda: chase.band_to_tridiag_chunked(
+            lb, n, bw, chunks), reps, batches=3)
+    finally:
+        chase.GRID_CAP = old_cap
+    bound_ms, bound_by = flops.bound_chase(n, bw, lb.dtype)
+    print(f"band_chase {tag}: n={n} bw={bw} {chase.BRANCH} branch; whole "
+          f"{ms_whole:.3f} ms ({grid_whole} CTAs, 1 launch), "
+          f"{len(ranges)} ranges {ms_ranges:.3f} ms ({launches} launches, "
+          f"last range {chase.GRID} CTAs), ranges {ranges}; bound "
+          f"{bound_ms:.3f} ms ({bound_by}); torch.equal")
+    return whole, {"n": n, "bw": bw, "dtype": str(lb.dtype),
+                   "branch": chase.BRANCH, "ranges": len(ranges),
+                   "launches": launches, "ms_whole": ms_whole,
+                   "ms": ms_ranges, "grid_whole": grid_whole,
+                   "grid_cap": cap, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": 0.0}
+
+
+def phase_chunked(dev, tmp, gen_pair):
+    """Phase 16: the sweep-range chase (``EK_CHASE_CHUNKS``) and the rest
+    of the JAX package's surface.  (a) B3 over 4 sweep ranges against B3
+    whole, ``torch.equal`` on d, e, HV and HT: n = 16384, bw = 64, float64
+    and float32 (the window branch, each timed with CUDA events, 4
+    launches against 1), n = 4096 under ``chase.GRID_CAP`` = 5 (lane
+    striding); (b) the chunked plain version against the chunked kernel
+    at n = 4096 (the bars of phase 6); (c) ``general_elpa2`` at n = 4096,
+    float64, on 2 x 2 gloo ranks on this card with ``EK_CHASE_CHUNKS=4``
+    and ``=1``, against one device's (phase 11), each rank's
+    ``sep:band_to_tridiag`` and solve peak printed; (d)
+    ``entry.dryrun_multichip(4)``; (e) ``tools/sweep.py`` over every name
+    at n = 1024, float64, on this card, standard and generalized, each
+    against phase 4's bars."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch import entry
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import chase
+    from eigenkernel_tpu_torch.tools import sweep
+
+    bw = DEFAULT_BLOCK_SIZE
+    out = {"ranges": []}
+    # (a) the range launch against the whole chase
+    for n, dtype, cap in ((N_TWO, torch.float64, 0),
+                          (N_TWO, torch.float32, 0),
+                          (N_KERNEL, torch.float64, 5),
+                          (N_KERNEL, torch.float32, 5)):
+        lb = random_lower(n, bw, dtype, dev, seed=16)
+        tag = f"{str(dtype)[6:]} n={n}" + (f" cap {cap}" if cap else "")
+        _, row = compare_ranges(lb, n, bw, 4, tag, cap=cap)
+        out["ranges"].append(row)
+        del lb
+        torch.cuda.empty_cache()
+    # (b) the chunked plain version against the chunked kernel
+    lb = random_lower(N_KERNEL, bw, torch.float64, dev, seed=17)
+    got = chase.band_to_tridiag_chunked(lb, N_KERNEL, bw, 4)
+    t0 = time.time()
+    plain = chase.band_to_tridiag_chunked(lb, N_KERNEL, bw, 4, plain=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    scale = float(lb.abs().sum(1).max())
+    err = max(float((got.d - plain.d).abs().max()),
+              float((got.e - plain.e).abs().max()))
+    hv_err = float((got.HV - plain.HV).abs().max())
+    ht_err = float((got.HT - plain.HT).abs().max())
+    print(f"band_chase f64 n={N_KERNEL}, 4 ranges: plain {plain_ms:.1f} ms; "
+          f"max |d, e - plain| {err:.3e}, |HV - plain| {hv_err:.3e}, "
+          f"|HT - plain| {ht_err:.3e} (the bars of phase 6)")
+    check(err <= 1e-8 * scale and hv_err <= 1e-6 and ht_err <= 1e-6,
+          "band_chase f64 4 ranges: kernel == plain over the same ranges")
+    out["plain"] = {"n": N_KERNEL, "plain_ms": plain_ms, "max_abs_err": err,
+                    "hv_err": hv_err, "ht_err": ht_err}
+    del lb, got, plain
+    torch.cuda.empty_cache()
+    # (c) general_elpa2 on the 2 x 2 grid in 4 ranges and in 1
+    jobs = [(f"chunks{c}", "general_elpa2", None, N_GEN, 8, 9,
+             {"EK_CHASE_CHUNKS": str(c)}) for c in (4, 1)]
+    out_dir = os.path.join(tmp, "mesh_chunked")
+    os.makedirs(out_dir)
+    run_grid(4, "gloo", (2, 2), [str(dev)] * 4, jobs, out_dir)
+    single = "gen_general_elpa2_float64"
+    ref = np.loadtxt(os.path.join(tmp, single, "eigenvalues.dat"),
+                     ndmin=2)[:, 1]
+    norm2 = float(np.abs(gen_pair[2]).max())
+    grid_runs = {}
+    for tag, *_ in jobs:
+        res = report_grid(tag, 4, out_dir, ref, norm2, ("chase", "deflate"))
+        rows = []
+        for r, rk in enumerate(res):
+            peaks = json.loads(str(rk["stage_peaks"]))
+            rows.append({"chase_peak_gib":
+                         peaks["sep:band_to_tridiag"] / 2**30,
+                         "peak_gib": float(rk["peak"]) / 2**30,
+                         "stage_peaks_gib": {k: v / 2**30 for k, v in
+                                             peaks.items()},
+                         "launches": json.loads(str(rk["launches"])),
+                         "seconds": float(rk["seconds"]),
+                         "stages": json.loads(str(rk["stages"]))})
+            print(f"  {tag} rank {r}: sep:band_to_tridiag peak "
+                  f"{rows[-1]['chase_peak_gib']:.3f} GiB, solve peak "
+                  f"{rows[-1]['peak_gib']:.3f} GiB; by stage (GiB) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              rows[-1]["stage_peaks_gib"].items()))
+        grid_runs[tag] = rows
+    w4 = np.load(os.path.join(out_dir, "chunks4_rank0.npz"))["values"]
+    w1 = np.load(os.path.join(out_dir, "chunks1_rank0.npz"))["values"]
+    check(np.array_equal(w4, w1), "general_elpa2 on the grid: 4 sweep "
+                                  "ranges == 1, eigenvalues bit for bit")
+    check(all(r["launches"]["chase"] == len(chase.chase_ranges(N_GEN, bw, 4))
+              for r in grid_runs["chunks4"]),
+          "general_elpa2 on the grid: one B3 launch a range on every rank")
+    print(f"  one device's peak ({single}) {PEAK_GIB[single]:.2f} GiB")
+    out["grid"] = grid_runs
+    out["one_device_peak_gib"] = PEAK_GIB[single]
+    # (d) the multi-process dry run: 4 gloo ranks on this card
+    t0 = time.time()
+    entry.dryrun_multichip(4)
+    out["dryrun_s"] = time.time() - t0
+    print(f"entry.dryrun_multichip(4): {out['dryrun_s']:.1f} s")
+    # (e) the solver sweep over every name, on this card
+    out["sweep"] = {}
+    for kind, extra in (("standard", []), ("generalized",
+                                           ["--generalized"])):
+        t0 = time.time()
+        rows = sweep.sweep(sweep.parse(["--n", "1024", "--dtype", "float64",
+                                        "--select-k", "128", *extra]))
+        bad = [r for r in rows if "error" in r or r["resid_max"] > 1e-12
+               or r["orth"] > 1e-10]
+        check(not bad, f"sweep ({kind}): every name within the bars "
+                       f"({bad})")
+        out["sweep"][kind] = {"seconds": time.time() - t0, "rows": rows}
+    names = [r["solver"] for k in out["sweep"].values() for r in k["rows"]]
+    from eigenkernel_tpu_torch.solvers.registry import SOLVERS
+
+    check(sorted(names) == sorted(SOLVERS), "the sweep ran every name")
+    return out
+
+
 def cli_on_cards(tmp, name, cards, shape, args):
     """The CLI on one process a card under NCCL, ``--mesh`` ``shape``, in
     a new directory ``tmp/name``; returns (that directory, process 0's
@@ -2247,6 +2485,14 @@ def main(argv) -> int:
             nccl = phase_mesh(dev, tmp, cards_only=True)["nccl"]
             print(f"process grid, NCCL on every card: "
                   f"{time.time() - t0:.1f} s")
+            if torch.cuda.device_count() > 1:
+                # phase 16 (d): the dry run, NCCL with a rank a card
+                from eigenkernel_tpu_torch import entry
+
+                t0 = time.time()
+                entry.dryrun_multichip(torch.cuda.device_count())
+                nccl["dryrun_s"] = time.time() - t0
+                print(f"entry.dryrun_multichip: {nccl['dryrun_s']:.1f} s")
         print(json.dumps({"cards": torch.cuda.device_count(), **nccl}))
         return 0
     # the latency of one step of each serial recurrence (D1's bound)
@@ -2304,6 +2550,10 @@ def main(argv) -> int:
         t0 = time.time()
         mesh_x = phase_mesh_extra(dev, tmp)
         print(f"process grid, jacobi, qdwh_dc and --dtype mixed: "
+              f"{time.time() - t0:.1f} s")
+        t0 = time.time()
+        chunked = phase_chunked(dev, tmp, gen_pair)
+        print(f"sweep ranges, dry run and solver sweep: "
               f"{time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
@@ -2394,6 +2644,19 @@ def main(argv) -> int:
         # grid's operands (B3 on each run's band, B4 and B5 on rank 0's)
         entries[-1]["mesh_gen_checks"] = mesh_gen["checks"].get(key, []) \
             + mesh_x["checks"].get(key, [])
+        if key == "chase":
+            # phase 16: B3 over 4 sweep ranges (one launch a range)
+            # against B3 whole, its plain version over the same ranges,
+            # and each rank's launches in the grid's general_elpa2
+            entries[-1].update(
+                range_launch=chunked["ranges"],
+                range_plain=chunked["plain"],
+                mesh_range_launches_by_rank=[
+                    r["launches"]["chase"]
+                    for r in chunked["grid"]["chunks4"]],
+                mesh_range_peaks_gib={
+                    tag: [(r["chase_peak_gib"], r["peak_gib"]) for r in rows]
+                    for tag, rows in chunked["grid"].items()})
     # D1: the six levels of one float64 tridiag_dc at n = 4096 on the
     # scalapack path's operands; not a TPU kernel (it replaces the
     # deflation lax.scans of the JAX function)

@@ -6,12 +6,14 @@ Counterpart of ``eigenkernel_tpu/core/types.py``:
 * ``SparseMatrix`` <- ``ek_sparse_mat_t``   (host COO, numpy, 0-based)
 * ``EigenPairs``   <- ``ek_eigenpairs_types_union_t``, holding torch tensors:
   ``vectors[:, j]`` is the eigenvector of ``values[j]`` (ascending).
+* ``Problem``      <- a standard (B None) or generalized (B SPD) problem of
+  host COO matrices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -75,3 +77,19 @@ class EigenPairs:
     @property
     def dim(self) -> int:
         return int(self.vectors.shape[0])
+
+
+@dataclass
+class Problem:
+    """An eigenproblem: standard (B is None) or generalized (B SPD)."""
+
+    A: SparseMatrix
+    B: Optional[SparseMatrix] = None
+
+    @property
+    def is_generalized(self) -> bool:
+        return self.B is not None
+
+    @property
+    def dim(self) -> int:
+        return self.A.size

@@ -11,12 +11,19 @@
 // margin, lb[i, q] = A[i, i + q - 2b], q in [0, 2b], row-major with
 // W = 2b + 1 words per row and n + 2b rows (rows >= n are zero).
 //
-// Schedule (ops/chase.py): at step tau, lane j chases sweep
-// c = tau/4 - j at band position t = tau%4 + 4j.  Its window starts at
-// p = c + 1 + t b and touches rows [p, p + 2b) only; lanes sit 4b - 1 rows
-// apart, so the lanes of one step touch disjoint rows.  A lane is live
-// when 0 <= c <= n-3, t < T, p < n-1 and jcol < n-1; a dead lane writes
-// nothing.
+// Schedule (ops/chase.py): a launch chases the sweeps [c_lo, c_hi] (the
+// whole chase: [0, n - 3]).  At step tau, lane j chases sweep
+// c = c_lo + tau/4 - j at band position t = tau%4 + 4j.  Its window starts
+// at p = c + 1 + t b and touches rows [p, p + 2b) only; lanes sit 4b - 1
+// rows apart, so the lanes of one step touch disjoint rows.  A lane is
+// live when c_lo <= c <= min(c_hi, n-3), t < T, p < n-1 and jcol < n-1; a
+// dead lane writes nothing.  4 (c_hi - c_lo) + T steps cover the range.
+// Each step's arithmetic is the same in any launch, and sweep c's step t
+// runs after every step of the older sweeps whose rows it reads, so
+// ranges chased one launch after another give the bits of the whole chase;
+// the state lb carries over from one launch to the next, and nothing else
+// does (the window carry below stays inside a launch, the barrier counter
+// is zeroed for each).
 //
 // One lane, in three phases separated by __syncthreads:
 //   1. x = A[p:p+b, jcol] (jcol = c for t == 0, else p - b), the
@@ -432,15 +439,17 @@ __device__ __forceinline__ void update(const Rows<T, kWin>& A, const T* v,
 template <typename T, bool kWin, int kB>
 __device__ bool chase_lane(T* __restrict__ lb, T* __restrict__ hv,
                            T* __restrict__ ht, T* smem, int n, int b_arg,
-                           int nt, int tau, int j, bool carried,
+                           int nt, int c_lo, int tau, int j, bool carried,
                            bool may_carry) {
-  // may_carry: a grid of one lane per CTA and a prefetch buffer
+  // may_carry: a CTA runs one lane a step, the same lane from one step to
+  // the next, and a prefetch buffer fits
+  // hv and ht hold sweeps c_lo.. of the range: row c - c_lo is sweep c
   const int b = kB > 0 ? kB : b_arg;
   const int t = (tau % 4) + 4 * j;
-  const int c = tau / 4 - j;
+  const int c = c_lo + tau / 4 - j;       // in [c_lo, c_hi] by the caller
   const int p = c + 1 + t * b;
   const int jcol = (t == 0) ? c : p - b;
-  if (!(c >= 0 && c <= n - 3 && t <= nt - 1 && p < n - 1 && jcol < n - 1))
+  if (!(c <= n - 3 && t <= nt - 1 && p < n - 1 && jcol < n - 1))
     return false;                         // dead lane: uniform per CTA
 
   const int W = 2 * b + 1, tid = threadIdx.x;
@@ -495,13 +504,14 @@ __device__ bool chase_lane(T* __restrict__ lb, T* __restrict__ hv,
   __syncthreads();
   const T th = sc[0];
   const bool live_v = sigma != T(0);
-  T* hv_out = hv + (static_cast<size_t>(c) * nt + t) * b;
+  const size_t at = static_cast<size_t>(c - c_lo) * nt + t;
+  T* hv_out = hv + at * b;
   for (int r = tid; r < b; r += kThreads) {
     const T vr = live_v ? (r == 0 ? T(1) : v[r] / sc[1]) : T(0);
     hv_out[r] = vr;
     v[r] = vr;
   }
-  if (tid == 0) ht[static_cast<size_t>(c) * nt + t] = th;
+  if (tid == 0) ht[at] = th;
   __syncthreads();
   if (th != T(0))           // else the identity: the state stays as it is
     update<T, kWin, kB>(A, v, dv, cl, cr, red, th, b);
@@ -516,17 +526,25 @@ __device__ bool chase_lane(T* __restrict__ lb, T* __restrict__ hv,
 template <typename T, bool kWin, int kB>
 __global__ void __launch_bounds__(kThreads)
     chase_kernel(T* __restrict__ lb, T* __restrict__ hv, T* __restrict__ ht,
-                 unsigned* bar, int n, int b, int nt, int pref) {
+                 unsigned* bar, int n, int b, int nt, int c_lo, int c_hi,
+                 int pref) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int max_lane = (nt + 3) / 4 - 1;
-  const int tau_max = 4 * (n - 3) + nt;
+  const int span = c_hi - c_lo;           // the range's sweeps, less one
+  const int tau_max = 4 * span + nt;
   unsigned target = 0;
-  const bool may_carry = pref && static_cast<int>(gridDim.x) > max_lane;
-  bool carried = false;
+  // at most min(max_lane, span) + 1 lanes are live at a step, consecutive
+  // in j: a grid of that many CTAs runs each on a CTA of its own, from one
+  // step to the next
+  const int live = (max_lane < span ? max_lane : span) + 1;
+  const bool may_carry = pref && static_cast<int>(gridDim.x) >= live;
+  bool carried = false;   // never across launches: a lane's carried step
+                          // is in its own range
   for (int tau = 0; tau < tau_max; ++tau) {
-    // lanes with 0 <= c <= n-3 and t <= nt-1; liveness is rechecked inside
-    int j0 = tau / 4 - (n - 3);
+    // lanes with c_lo <= c <= c_hi and t <= nt-1; liveness is rechecked
+    // inside
+    int j0 = tau / 4 - span;
     if (j0 < 0) j0 = 0;
     int j1 = tau / 4;
     const int jt = nt - 1 - tau % 4;
@@ -539,8 +557,8 @@ __global__ void __launch_bounds__(kThreads)
     bool next = false;
     for (int j = static_cast<int>(blockIdx.x); j <= j1; j += gridDim.x) {
       if (j < j0) continue;
-      next = chase_lane<T, kWin, kB>(lb, hv, ht, smem, n, b, nt, tau, j,
-                                     carried, may_carry);
+      next = chase_lane<T, kWin, kB>(lb, hv, ht, smem, n, b, nt, c_lo, tau,
+                                     j, carried, may_carry);
       __syncthreads();                    // smem is reused by the next lane
     }
     carried = next;
@@ -600,12 +618,13 @@ int resident(int b, int window, int* blocks) {
 
 template <typename T>
 int launch(void* lb, void* hv, void* ht, void* bar, int n, int b, int nt,
-           int window, int grid, void* stream) {
+           int c_lo, int c_hi, int window, int grid, void* stream) {
+  if (c_lo < 0 || c_hi < c_lo || c_hi > n - 3) return cudaErrorInvalidValue;
   size_t smem = 0;
   int pref = 0;
   int err = prepare<T>(b, window, &smem, &pref);
   if (err != 0) return err;
-  void* args[] = {&lb, &hv, &ht, &bar, &n, &b, &nt, &pref};
+  void* args[] = {&lb, &hv, &ht, &bar, &n, &b, &nt, &c_lo, &c_hi, &pref};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       kernel_of<T>(b, window), dim3(grid), dim3(kThreads), args, smem,
       static_cast<cudaStream_t>(stream)));
@@ -623,19 +642,23 @@ extern "C" int ek_band_chase_resident_f32(int b, int window, int* blocks) {
   return resident<float>(b, window, blocks);
 }
 
-// lb (n + 2b, 2b + 1) lower band state, updated in place; hv (n, nt, b) and
-// ht (n, nt) zero-filled reflector stores, written at every live (c, t);
-// bar: a zeroed unsigned word for the grid barrier.  Runs the whole
-// chase in one cooperative launch of `grid` CTAs (branch `window`).
-// Returns the CUDA error of the launch, else 0.
+// lb (n + 2b, 2b + 1) lower band state, updated in place; hv
+// (c_hi - c_lo + 1, nt, b) and ht (c_hi - c_lo + 1, nt) zero-filled
+// reflector stores of the sweeps [c_lo, c_hi] (0 <= c_lo <= c_hi <= n - 3),
+// row c - c_lo written at every live (c, t); bar: a zeroed unsigned word
+// for the grid barrier.  Chases those sweeps in one cooperative launch of
+// `grid` CTAs (branch `window`).  Returns the CUDA error of the launch,
+// else 0.
 extern "C" int ek_band_chase_f64(void* lb, void* hv, void* ht, void* bar,
-                                 int n, int b, int nt, int window, int grid,
-                                 void* stream) {
-  return launch<double>(lb, hv, ht, bar, n, b, nt, window, grid, stream);
+                                 int n, int b, int nt, int c_lo, int c_hi,
+                                 int window, int grid, void* stream) {
+  return launch<double>(lb, hv, ht, bar, n, b, nt, c_lo, c_hi, window, grid,
+                        stream);
 }
 
 extern "C" int ek_band_chase_f32(void* lb, void* hv, void* ht, void* bar,
-                                 int n, int b, int nt, int window, int grid,
-                                 void* stream) {
-  return launch<float>(lb, hv, ht, bar, n, b, nt, window, grid, stream);
+                                 int n, int b, int nt, int c_lo, int c_hi,
+                                 int window, int grid, void* stream) {
+  return launch<float>(lb, hv, ht, bar, n, b, nt, c_lo, c_hi, window, grid,
+                       stream);
 }

@@ -1,7 +1,10 @@
 """MatrixMarket file IO: header probe, COO read, write.
 
-Counterpart of ``eigenkernel_tpu/io/matrix_market.py`` with its NumPy
-parser (the native g++ parser is later work):
+Counterpart of ``eigenkernel_tpu/io/matrix_market.py``: coordinate files
+go through the native parser (``io/native_mm.py``, ``csrc/mmio.cpp``
+built with g++; a failed build raises), ``array`` files through the NumPy
+parser ``_read_numpy``, which reads any file and is the plain version the
+tests hold the native one against:
 
 * ``read_header``  <- ``mminfo``: probes the header without reading values.
 * ``read_matrix``  <- ``read_matrix_file``, including the index-range
@@ -77,7 +80,12 @@ def read_matrix(filename: str, info: MatrixInfo | None = None,
     if info.rows != info.cols:
         raise MatrixMarketError(f"{filename}: matrix is not square "
                                 f"({info.rows}x{info.cols})")
-    mat = _read_numpy(filename, info)
+    if info.rep == "coordinate":
+        from eigenkernel_tpu_torch.io import native_mm
+
+        mat = native_mm.read_coordinate(filename, info)
+    else:
+        mat = _read_numpy(filename, info)
     if mat.nnz != info.entries:
         raise MatrixMarketError(
             f"{filename}: expected {info.entries} entries, got {mat.nnz}")

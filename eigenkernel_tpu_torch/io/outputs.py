@@ -3,7 +3,8 @@
 Counterpart of ``eigenkernel_tpu/io/outputs.py``:
 
 * ``write_eigenvalues`` / ``write_ipratios`` <- main.f90:111-143: one
-  ``index value`` line per entry, 1-based, E26.16-style floats.
+  ``index value`` line per entry, 1-based, E26.16-style floats;
+  ``read_indexed_values`` reads such a file back.
 * ``print_eigenvectors`` <- matrix_io.f90:173-285: one file
   ``<dir>/%08d.dat`` per requested vector, text lines ``i j value`` or
   (``--binary``) one Fortran unformatted sequential record: 4-byte
@@ -37,6 +38,12 @@ def _write_indexed(path: str, values) -> None:
     with open(path, "w") as f:
         f.writelines(f"{j:8d} {_fmt(v)}\n"
                      for j, v in enumerate(vals.tolist(), start=1))
+
+
+def read_indexed_values(path: str) -> np.ndarray:
+    """The values of an ``index value`` file (eigenvalues.dat,
+    ipratios.dat, and the reference's ground-truth ``*_ev.txt`` files)."""
+    return np.loadtxt(path, ndmin=2)[:, 1]
 
 
 def write_eigenvalues(path: str, values) -> None:

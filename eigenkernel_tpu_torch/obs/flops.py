@@ -3,7 +3,9 @@ port's kernels on the card.
 
 The stage counts are copied from ``eigenkernel_tpu/obs/flops.py``: the
 reductions and the recovery of generalized problems, the one- and
-two-stage cores, divide and conquer and the ``eigh`` core.
+two-stage cores, divide and conquer and the ``eigh`` core, a whole named
+solve's (:func:`pipeline_flops`) and the band reduction's bytes
+(:func:`to_band_bytes`), the models a benchmark divides by.
 Each count is the useful arithmetic of the textbook algorithm, not the
 executed instructions; ``log.json`` carries them as ``!<stage>_Gflops``
 events (the reference re-logs backend GFLOPS self-reports the same way).
@@ -99,6 +101,37 @@ def eigh(n: int) -> float:
     # dense symmetric eigensolver nominal count (the LAPACK-style
     # 4/3 n^3 + 4 n^3)
     return 16 * n ** 3 / 3
+
+
+def pipeline_flops(core: str, generalized: bool, reduction: str,
+                   n: int, k: int, bw: int) -> float:
+    """Total model flops of one named-solver run (dimension n, n_vec k)."""
+    total = 0.0
+    if generalized:
+        total += reduce_elpa(n) if reduction == "elpa" \
+            else reduce_scalapack(n)
+        total += recover(n, k)
+    full = 2 * k >= n
+    tri_fl = tridiag_dc(n) if full else bisect_invit(n, k)
+    if core == "one_stage":
+        total += tridiagonalize(n) + tri_fl + back_transform_one_stage(n, k)
+    elif core == "two_stage":
+        total += (full_to_band(n, bw) + band_to_tridiag(n, bw) + tri_fl
+                  + back_transform_two_stage(n, k))
+    elif core == "jacobi":
+        total += jacobi(n)
+    elif core == "qdwh":
+        total += qdwh_dc(n)
+    else:  # eigh
+        total += eigh(n)
+    return total
+
+
+def to_band_bytes(n: int, bw: int, itemsize: int) -> float:
+    """Model memory bytes of the dense -> band reduction: each bw-wide
+    panel makes one two-sided pass over its (n - i bw)^2 trailing matrix,
+    summing to ~n^3 / bw elements each way."""
+    return float(n) ** 3 / max(bw, 1) * itemsize
 
 
 # ---- kernel bounds on the card ----------------------------------------------

@@ -11,6 +11,10 @@ never at import: a machine without ``nvcc`` can import every module and run
 the plain PyTorch versions on CPU tensors.
 
 A failed build raises :class:`KernelCompileError` with the compiler's output.
+
+:func:`host_library` builds a host C++ source (``csrc/mmio.cpp``, the
+MatrixMarket parser) with ``g++ -O2 -shared -fPIC`` the same way, into
+the same ``_build/``, at its first use.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,8 +52,10 @@ _SIGNATURES = {
         "ek_tridiag_solve_rows": (),
     },
     "band_chase.cu": {
-        "ek_band_chase_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "ek_band_chase_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "ek_band_chase_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
+        "ek_band_chase_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
         "ek_band_chase_resident_f64": (_I, _I, _P),
         "ek_band_chase_resident_f32": (_I, _I, _P),
     },
@@ -91,8 +98,8 @@ class KernelLaunchError(RuntimeError):
     pass
 
 
-def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(name: str, flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     with open(os.path.join(CSRC, name), "rb") as f:
         h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -113,9 +120,9 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> str:
+def _lib_path(name: str, flags=NVCC_FLAGS) -> str:
     stem = os.path.splitext(name)[0]
-    return os.path.join(BUILD_ROOT, f"{stem}-{_source_hash(name)}",
+    return os.path.join(BUILD_ROOT, f"{stem}-{_source_hash(name, flags)}",
                         f"lib{stem}.so")
 
 
@@ -180,6 +187,35 @@ def library() -> _Kernels:
     if _LIB is None:
         _LIB = _Kernels(_build_all())
     return _LIB
+
+
+_HOST = {}
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The host C++ source ``csrc/<name>`` as a loaded shared library,
+    built with ``g++`` on first use (:class:`KernelCompileError` if the
+    build fails)."""
+    if name in _HOST:
+        return _HOST[name]
+    path = _lib_path(name, GXX_FLAGS)
+    if not os.path.exists(path):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise KernelCompileError(f"g++ not found: it builds {name}")
+        out_dir = os.path.dirname(path)
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [gxx, *GXX_FLAGS, "-o", tmp, os.path.join(CSRC, name)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelCompileError(f"g++ failed ({proc.returncode}): "
+                                     f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, path)
+    _HOST[name] = ctypes.CDLL(path)
+    return _HOST[name]
 
 
 def check(status: int, name: str) -> None:

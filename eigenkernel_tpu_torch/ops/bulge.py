@@ -19,10 +19,12 @@ in :mod:`.chase` (kernel B3), the back-transforms in :mod:`.wf_bt` (B4) and
 back-transform (``EK_BACKTRANSFORM=blocked``) and the model of B5's block
 order.  The sequential chase is not ported: the tests hold the wavefront
 chase against the JAX package's.  On a process grid every rank runs the
-chase on the replicated banded state; :func:`shard_chase_store` then
-keeps a rank's own WY groups and :func:`apply_chase_q_blocked_sharded`
-broadcasts them in turn.  ``band_to_tridiag_chunked`` (``EK_CHASE_CHUNKS``)
-and the XLA wavefront schedules are not ported.
+chase on the replicated banded state in sweep ranges
+(``chase.band_to_tridiag_chunked``, ``EK_CHASE_CHUNKS``); :func:`keep_own_groups`
+keeps a rank's own WY groups of each finished range (the JAX package's
+``_shard_chase_store`` applied per chunk) and
+:func:`apply_chase_q_blocked_sharded` broadcasts them in turn.  The XLA
+wavefront schedules are not ported.
 """
 
 from __future__ import annotations
@@ -168,13 +170,15 @@ def _apply_group(fr: _Frame, G: int, hv_desc: torch.Tensor,
         zw -= Y @ w2
 
 
-def _group_slab(HV: torch.Tensor, HT: torch.Tensor, n: int, g: int, G: int):
-    """Group ``G``'s reflectors newest first, (g, T, b) and (g, T); sweeps
-    before 0 are zero reflectors (exact identities)."""
+def _group_slab(HV: torch.Tensor, HT: torch.Tensor, n: int, g: int, G: int,
+                c_base: int = 0):
+    """Group ``G``'s reflectors newest first, (g, T, b) and (g, T), from a
+    store whose row 0 is sweep ``c_base``; sweeps before 0 are zero
+    reflectors (exact identities)."""
     c0 = n - 3 - G * g
     lo = c0 - g + 1
-    hv = HV[max(lo, 0):c0 + 1]
-    ht = HT[max(lo, 0):c0 + 1]
+    hv = HV[max(lo, 0) - c_base:c0 + 1 - c_base]
+    ht = HT[max(lo, 0) - c_base:c0 + 1 - c_base]
     if lo < 0:
         hv = torch.cat([hv.new_zeros((-lo,) + tuple(hv.shape[1:])), hv])
         ht = torch.cat([ht.new_zeros((-lo,) + tuple(ht.shape[1:])), ht])
@@ -226,18 +230,27 @@ class GridChaseStore(NamedTuple):
     mine: dict
 
 
-def shard_chase_store(res: ChaseResult, group: int, grid) -> ChaseResult:
-    """Keep this rank's WY groups of the chase store and drop the rest
-    (the JAX package's ``_shard_chase_store``, ``ops/bulge.py:138-158``):
-    ``HV`` becomes a :class:`GridChaseStore`, ``HT`` None."""
-    n, T, b = res.HV.shape
-    g = _group_size(group, b)
-    nG = n_chase_groups(n, g)
-    mine = {}
-    for G in range(grid.rank, nG, grid.size):
-        hv, ht = _group_slab(res.HV, res.HT, n, g, G)
-        mine[G] = torch.cat([hv, ht[..., None]], dim=2)
-    return res._replace(HV=GridChaseStore(g, nG, T, b, mine), HT=None)
+def keep_own_groups(store: GridChaseStore, n: int, grid):
+    """The ``keep`` of a grid's chunked chase
+    (``chase.band_to_tridiag_chunked``, its ranges cut at the edges of
+    ``store``'s groups): from each finished range (its first sweep
+    ``c_lo``, its (sweeps, T, b) and (sweeps, T) reflectors) put this
+    rank's WY groups into ``store.mine`` and drop the rest (the JAX
+    package's ``_shard_chase_store``, ``ops/bulge.py:138-158``, applied
+    per chunk as ``band_to_tridiag_chunked`` does, ``:615-680``)."""
+    g = store.g
+
+    def keep(c_lo: int, hv: torch.Tensor, ht: torch.Tensor) -> None:
+        c_hi = c_lo + hv.shape[0] - 1
+        for G in range(grid.rank, store.n_groups, grid.size):
+            c0 = n - 3 - G * g
+            if c_lo <= c0 <= c_hi:
+                if max(c0 - g + 1, 0) < c_lo:
+                    raise ValueError(f"sweep range [{c_lo}, {c_hi}] cuts "
+                                     f"WY group {G}")
+                s, t = _group_slab(hv, ht, n, g, G, c_lo)
+                store.mine[G] = torch.cat([s, t[..., None]], dim=2)
+    return keep
 
 
 def apply_chase_q_blocked_sharded(res: ChaseResult, z: torch.Tensor,

@@ -24,10 +24,17 @@ two-sided update, in dense terms (window D = A[p:p+b, p:p+b]):
   included), left strip ``A[p:p+b, p-b-1:p] <- H L``, bulge fill rows
   ``A[p+b:p+2b, p:p+b] <- F H``.
 
-A CUDA tensor runs ``csrc/band_chase.cu``: the whole chase in one
-cooperative launch of :func:`grid_size` CTAs, which stride over the live
-lanes of each step (:func:`lane_slots`) with a grid-wide barrier between
-steps; ``LAUNCHES`` counts one per chase.  Its branch (:func:`branch`)
+A CUDA tensor runs ``csrc/band_chase.cu``: a range of sweeps [c_lo, c_hi]
+(the whole chase: [0, n-3]) in one cooperative launch of :func:`grid_size`
+CTAs, which stride over the live lanes of each step (:func:`lane_slots`)
+with a grid-wide barrier between steps; ``LAUNCHES`` counts one per
+launch.  Lane j of a range chases sweep ``c = c_lo + tau//4 - j``.
+:func:`banded_to_tridiag_range` chases a range on the state in place,
+:func:`band_to_tridiag_chunked` (``EK_CHASE_CHUNKS``, the JAX package's
+``bulge.band_to_tridiag_chunked``) the ranges of :func:`chase_ranges` one
+after another, each finished range handed to a callback: within a sweep
+order nothing changes, so its d, e and reflectors are the whole chase's
+bits.  Its branch (:func:`branch`)
 stages each lane's window in shared memory ("window", while
 :func:`window_words` fits in a block's 227 KB: b <= 84 in float64, b <= 119
 in float32) or works on the state in L2 ("global"); with a CTA per lane
@@ -45,8 +52,9 @@ import ctypes
 import torch
 
 from eigenkernel_tpu_torch.ops import build
-from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _house_pivot0,
-                                             _to_banded, trivial_chase)
+from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _group_size,
+                                             _house_pivot0, _to_banded,
+                                             n_chase_groups, trivial_chase)
 
 LAUNCHES = 0  # kernel launches (one per chase; CPU runs add none)
 BRANCH = ""   # the branch of the last kernel launch: "window" or "global"
@@ -67,9 +75,10 @@ def n_positions(n: int, b: int) -> int:
     return n // b + 2
 
 
-def n_steps(n: int, b: int) -> int:
-    """The wavefront steps of the chase, ``4(n-3) + T``."""
-    return 4 * (n - 3) + n_positions(n, b)
+def n_steps(n: int, b: int, sweeps: int = 0) -> int:
+    """The wavefront steps of a chase of ``sweeps`` sweeps (0: all n - 2),
+    ``4(sweeps - 1) + T``."""
+    return 4 * ((sweeps or n - 2) - 1) + n_positions(n, b)
 
 
 def window_words(b: int) -> int:
@@ -91,10 +100,13 @@ def max_lanes(n: int, b: int) -> int:
     return (n_positions(n, b) + 3) // 4
 
 
-def grid_size(n: int, b: int, resident: int, cap: int = 0) -> int:
-    """CTAs of the persistent launch: no more than the lanes of a step, nor
-    than can be co-resident (``resident``), nor than ``cap`` if set."""
-    grid = min(max_lanes(n, b), resident)
+def grid_size(n: int, b: int, resident: int, cap: int = 0,
+              sweeps: int = 0) -> int:
+    """CTAs of the persistent launch of a range of ``sweeps`` sweeps (0:
+    all): no more than the lanes of a step (at most the range's sweeps),
+    nor than can be co-resident (``resident``), nor than ``cap`` if
+    set."""
+    grid = min(max_lanes(n, b), sweeps or n - 2, resident)
     if cap > 0:
         grid = min(grid, cap)
     return max(1, grid)
@@ -108,17 +120,20 @@ def lane_slots(j0: int, j1: int, block: int, grid: int) -> list:
     return [j for j in range(block, j1 + 1, grid) if j >= j0]
 
 
-def _live_lanes(tau: int, n: int, b: int, T: int):
-    """(c, t, p) of every live lane at step tau."""
+def _live_lanes(tau: int, n: int, b: int, T: int, c_lo: int = 0,
+                c_hi: int = -1):
+    """(c, t, p) of every live lane at step tau of the range [c_lo, c_hi]
+    (c_hi < 0: n - 3)."""
+    c_hi = n - 3 if c_hi < 0 else c_hi
     out = []
-    for j in range(max(0, tau // 4 - (n - 3)), tau // 4 + 1):
+    for j in range(max(0, tau // 4 - (c_hi - c_lo)), tau // 4 + 1):
         t = tau % 4 + 4 * j
-        c = tau // 4 - j
+        c = c_lo + tau // 4 - j
         p = c + 1 + t * b
         jcol = c if t == 0 else p - b
         if t > T - 1:
             break
-        if 0 <= c <= n - 3 and p < n - 1 and jcol < n - 1:
+        if c <= n - 3 and p < n - 1 and jcol < n - 1:
             out.append((c, t, p))
     return out
 
@@ -147,21 +162,25 @@ def _offsets(b: int, dev):
 
 
 def chase_plain(lb: torch.Tensor, hv: torch.Tensor, ht: torch.Tensor,
-                n: int, b: int) -> None:
-    """The kernel's steps in PyTorch: per step, gather the live lanes'
-    faces, update, scatter back.  Updates ``lb``, ``hv`` and ``ht`` in
-    place.  Every step's lanes go to the device in one copy up front; on
-    a CUDA tensor each step replays a CUDA graph of its operations,
-    captured once for each count of live lanes, on a static copy of the
-    step's lanes (a launch a step, not ~40)."""
+                n: int, b: int, c_lo: int = 0) -> None:
+    """The kernel's steps in PyTorch for the sweeps ``c_lo ..
+    c_lo + len(hv) - 1``: per step, gather the live lanes' faces, update,
+    scatter back.  Updates ``lb``, ``hv`` and ``ht`` (row c - c_lo: sweep
+    c) in place.  Every step's lanes go to the device in one copy up
+    front; on a CUDA tensor each step replays a CUDA graph of its
+    operations, captured once for each count of live lanes, on a static
+    copy of the step's lanes (a launch a step, not ~40)."""
     T = hv.shape[1]
+    c_hi = c_lo + hv.shape[0] - 1
     dev = lb.device
     off = _offsets(b, dev)
     d_low = off["D"].reshape(-1)[off["lower"]]
-    steps = [lanes for lanes in (_live_lanes(tau, n, b, T)
-                                 for tau in range(n_steps(n, b))) if lanes]
-    every = torch.tensor([x for lanes in steps for x in lanes],
-                         device=dev).T                         # (3, total)
+    steps = [lanes for lanes in (_live_lanes(tau, n, b, T, c_lo, c_hi)
+                                 for tau in range(n_steps(n, b,
+                                                          c_hi - c_lo + 1)))
+             if lanes]
+    every = torch.tensor([(c - c_lo, t, p) for lanes in steps
+                          for c, t, p in lanes], device=dev).T  # (3, total)
     # the graphs write nothing to their pool that outlives a replay, so
     # one pool serves them all
     graphs, pool = {}, None
@@ -185,7 +204,8 @@ def chase_plain(lb: torch.Tensor, hv: torch.Tensor, ht: torch.Tensor,
 
 
 def _chase_step(lb, hv, ht, idx, off, d_low, b: int) -> None:
-    """One step of the plain chase on the lanes ``idx`` = (c, t, p)."""
+    """One step of the plain chase on the lanes ``idx`` = (c, t, p), c the
+    row of ``hv`` and ``ht``."""
     W = 2 * b + 1
     flat = lb.view(-1)
     c, t, p = idx
@@ -258,39 +278,29 @@ def _trivial_lower(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
                        bw)
 
 
-def band_to_tridiag_plain(band: torch.Tensor, bw: int) -> ChaseResult:
+def band_to_tridiag_plain(band: torch.Tensor, bw: int,
+                          chunks: int = 1) -> ChaseResult:
     """:func:`band_to_tridiag` by the plain version, on any device."""
     _check(band)
     n = band.shape[0]
     if n <= 2 or bw <= 1:
         return trivial_chase(band, bw)
-    return banded_to_tridiag_plain(lower_storage(band, bw), n, bw)
+    return band_to_tridiag_chunked(lower_storage(band, bw), n, bw, chunks,
+                                   plain=True)
 
 
-def banded_to_tridiag_plain(lb: torch.Tensor, n: int,
-                            bw: int) -> ChaseResult:
-    """:func:`banded_to_tridiag` by the plain version, on any device."""
-    _check_lower(lb, n, bw)
-    if n <= 2 or bw <= 1:
-        return _trivial_lower(lb, n, bw)
-    lb = lb.clone()
-    T = n_positions(n, bw)
-    hv, ht = lb.new_zeros((n, T, bw)), lb.new_zeros((n, T))
-    chase_plain(lb, hv, ht, n, bw)
-    return _result(lb, hv, ht, n, bw)
-
-
-def band_to_tridiag(band: torch.Tensor, bw: int) -> ChaseResult:
+def band_to_tridiag(band: torch.Tensor, bw: int,
+                    chunks: int = 1) -> ChaseResult:
     """Reduce a symmetric band matrix (semibandwidth ``bw``, dense storage)
-    to tridiagonal.  A CUDA tensor runs the CUDA kernel, a CPU tensor the
-    plain version."""
+    to tridiagonal, in ``chunks`` sweep ranges (:func:`chase_ranges`).  A
+    CUDA tensor runs the CUDA kernel, a CPU tensor the plain version."""
     _check(band)
     n = band.shape[0]
     if band.device.type not in ("cpu", "cuda"):
         raise ValueError(f"band_to_tridiag: unsupported device {band.device}")
     if n <= 2 or bw <= 1:
         return trivial_chase(band, bw)
-    return banded_to_tridiag(lower_storage(band, bw), n, bw)
+    return band_to_tridiag_chunked(lower_storage(band, bw), n, bw, chunks)
 
 
 def banded_to_tridiag(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
@@ -299,18 +309,54 @@ def banded_to_tridiag(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
     rows past n), the entry a process grid's chase takes
     (``band.banded_lower``): the same state, so the same steps bit for
     bit.  ``lb`` is not modified."""
+    return band_to_tridiag_chunked(lb, n, bw, 1)
+
+
+def chase_ranges(n: int, bw: int, chunks: int, group: int = 0) -> list:
+    """The sweep ranges [(c_lo, c_hi), ...] of a chase in ``chunks``
+    launches, oldest first: cut at the edges of the WY groups of
+    ``bulge.apply_chase_q_blocked`` (g = ``bulge._group_size(group, bw)``
+    sweeps, counted back from the last sweep n - 3), ceil(groups /
+    chunks) groups a range, the first range the short one; so a finished
+    range holds whole groups.  One range for chunks <= 1."""
+    last = n - 3
+    if chunks <= 1:
+        return [(0, last)]
+    g = _group_size(group, bw)
+    nG = n_chase_groups(n, g)
+    per = -(-nG // chunks)
+    out = []
+    for G0 in range(0, nG, per):
+        G1 = min(nG, G0 + per) - 1
+        out.append((max(0, last - (G1 + 1) * g + 1), last - G0 * g))
+    return out[::-1]
+
+
+def banded_to_tridiag_range(lb: torch.Tensor, n: int, bw: int, c_lo: int,
+                            c_hi: int, out=None, plain: bool = False):
+    """Chase the sweeps ``c_lo .. c_hi`` (0 <= c_lo <= c_hi <= n - 3) on
+    the banded lower storage ``lb``, updated in place: sweep c's
+    reflectors go to row c - c_lo of ``out`` = (hv, ht), zeroed
+    (c_hi - c_lo + 1, T, bw) and (c_hi - c_lo + 1, T) tensors (made here
+    if None), which it returns.  ``lb`` must hold the state the sweeps
+    before c_lo left (the band for c_lo = 0).  A CUDA tensor launches the
+    kernel once, a CPU tensor (or ``plain``) runs :func:`chase_plain`."""
     global LAUNCHES, BRANCH, GRID
     _check_lower(lb, n, bw)
-    if lb.device.type == "cpu":
-        return banded_to_tridiag_plain(lb, n, bw)
+    if not 0 <= c_lo <= c_hi <= n - 3:
+        raise ValueError(f"banded_to_tridiag_range: sweeps [{c_lo}, "
+                         f"{c_hi}] outside [0, {n - 3}]")
+    T = n_positions(n, bw)
+    if out is None:
+        out = (lb.new_zeros((c_hi - c_lo + 1, T, bw)),
+               lb.new_zeros((c_hi - c_lo + 1, T)))
+    hv, ht = out
+    if plain or lb.device.type == "cpu":
+        chase_plain(lb, hv, ht, n, bw, c_lo)
+        return hv, ht
     if lb.device.type != "cuda":
         raise ValueError(f"banded_to_tridiag: unsupported device "
                          f"{lb.device}")
-    if n <= 2 or bw <= 1:
-        return _trivial_lower(lb, n, bw)
-    lb = lb.contiguous().clone()
-    T = n_positions(n, bw)
-    hv, ht = lb.new_zeros((n, T, bw)), lb.new_zeros((n, T))
     lib = build.library()
     name = _FN[lb.dtype]
     br = branch(bw, lb.dtype)
@@ -320,13 +366,53 @@ def banded_to_tridiag(lb: torch.Tensor, n: int, bw: int) -> ChaseResult:
     if resident.value < 1:
         raise build.KernelLaunchError(f"{name}: no block of the {br} branch "
                                       f"fits on {lb.device}")
-    grid = grid_size(n, bw, resident.value, GRID_CAP)
+    grid = grid_size(n, bw, resident.value, GRID_CAP, c_hi - c_lo + 1)
     bar = torch.zeros(1, dtype=torch.int32, device=lb.device)
     stream = torch.cuda.current_stream(lb.device).cuda_stream
     status = getattr(lib, name)(lb.data_ptr(), hv.data_ptr(), ht.data_ptr(),
-                                bar.data_ptr(), n, bw, hv.shape[1],
+                                bar.data_ptr(), n, bw, T, c_lo, c_hi,
                                 int(br == "window"), grid, stream)
     build.check(status, name)
     LAUNCHES += 1
     BRANCH, GRID = br, grid
+    return hv, ht
+
+
+def band_to_tridiag_chunked(lb: torch.Tensor, n: int, bw: int, chunks: int,
+                            keep=None, group: int = 0,
+                            plain: bool = False) -> ChaseResult:
+    """The chase of the banded lower storage ``lb`` (not modified) in the
+    sweep ranges of :func:`chase_ranges` (``chunks``, ``group``), one
+    launch each, oldest first (the JAX package's
+    ``bulge.band_to_tridiag_chunked``).  Without ``keep`` the ranges
+    write into one (n, T, bw) store, returned whole, the bits of the
+    whole chase; with it each finished range's (hv, ht) goes to
+    ``keep(c_lo, hv, ht)`` and is then dropped, and the result's HV and HT
+    are None: a rank of a process grid keeps its own WY groups, and holds
+    one range in flight, never the whole store.  ``plain`` runs the plain
+    version on any device."""
+    _check_lower(lb, n, bw)
+    if lb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"banded_to_tridiag: unsupported device "
+                         f"{lb.device}")
+    if n <= 2 or bw <= 1:
+        res = _trivial_lower(lb, n, bw)
+        if keep is not None:
+            keep(0, res.HV, res.HT)
+            res = res._replace(HV=None, HT=None)
+        return res
+    lb = lb.contiguous().clone()
+    T = n_positions(n, bw)
+    if keep is None:
+        hv, ht = lb.new_zeros((n, T, bw)), lb.new_zeros((n, T))
+    for c_lo, c_hi in chase_ranges(n, bw, chunks, group):
+        if keep is None:
+            banded_to_tridiag_range(lb, n, bw, c_lo, c_hi,
+                                    (hv[c_lo:c_hi + 1], ht[c_lo:c_hi + 1]),
+                                    plain)
+        else:
+            keep(c_lo, *banded_to_tridiag_range(lb, n, bw, c_lo, c_hi,
+                                                plain=plain))
+    if keep is not None:
+        hv = ht = None
     return _result(lb, hv, ht, n, bw)

@@ -95,6 +95,89 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+GRAPH_STEPS = 64  # scan steps a CUDA graph of the plain version replays
+
+_FIELDS = {"fin_idx": None, "fin_d": "f", "fin_u": "f", "fin_valid": "b",
+           "rot_ip": None, "rot_c": "f", "rot_s": "f", "rot_m": "b",
+           "depths": None}   # record -> dtype: the floats', bool, int64
+
+
+def _records(nb: int, k: int, dtype, dev) -> dict:
+    kinds = {"f": dtype, "b": torch.bool, None: torch.int64}
+    return {f: torch.empty((nb, k), dtype=kinds[kind], device=dev)
+            for f, kind in _FIELDS.items()}
+
+
+def _carry(nb: int, dtype, dev) -> dict:
+    """The scans' carry at the start: no survivor yet."""
+    z = torch.zeros(nb, dtype=dtype, device=dev)
+    zi = torch.zeros(nb, dtype=torch.int64, device=dev)
+    return {"has": torch.zeros(nb, dtype=torch.bool, device=dev),
+            "ip": zi, "dp": z, "up": z.clone(), "last_i": zi - 1,
+            "last_d": zi.clone()}
+
+
+def _scan_steps(ds, us, alive, tol, idx, st: dict, rec: dict) -> None:
+    """The steps of the columns of ``ds``, ``us``, ``alive`` (nb, G),
+    entry ``idx[j]`` (a device tensor) in column j: the carry ``st``
+    updated and the records ``rec`` (nb, G) written in place."""
+    for j in range(ds.shape[1]):
+        i = idx[j]
+        di, ui, al = ds[:, j], us[:, j], alive[:, j]
+        has, ip, dp, up = st["has"], st["ip"], st["dp"], st["up"]
+        last_i, last_d = st["last_i"], st["last_d"]
+        r = sqrt_rn(up * up + ui * ui)
+        r_safe = torch.where(r == 0, 1.0, r)
+        c = ui / r_safe
+        sn = up / r_safe
+        close = has & al & (((di - dp) * c * sn).abs() <= tol)
+        fin_prev = has & al & ~close
+        fin_self = ~al
+        rec["fin_valid"][:, j] = close | fin_prev | fin_self
+        rec["fin_idx"][:, j] = torch.where(fin_self, i, ip)
+        rec["fin_d"][:, j] = torch.where(
+            close, c * c * dp + sn * sn * di, torch.where(fin_self, di, dp))
+        rec["fin_u"][:, j] = torch.where(fin_prev, up, 0.0)
+        rec["rot_ip"][:, j] = ip
+        rec["rot_c"][:, j] = c
+        rec["rot_s"][:, j] = sn
+        rec["rot_m"][:, j] = close
+        depth = torch.where(close & (ip == last_i), last_d + 1, 0)
+        rec["depths"][:, j] = torch.where(close, depth, -1)
+        new = {"last_i": torch.where(close, i, last_i),
+               "last_d": torch.where(close, depth, last_d),
+               "has": has | al,
+               "dp": torch.where(al, torch.where(
+                   close, sn * sn * dp + c * c * di, di), dp),
+               "up": torch.where(al, torch.where(close, r, ui), up),
+               "ip": torch.where(al, i, ip)}
+        for key, val in new.items():
+            st[key].copy_(val)
+
+
+_GRAPHS: dict = {}
+
+
+def _scan_graph(nb: int, dtype, dev):
+    """A CUDA graph of :func:`_scan_steps` over GRAPH_STEPS columns of nb
+    merges, on static buffers: (graph, inputs (ds, us, alive, tol, idx),
+    carry, records)."""
+    key = (nb, dtype, dev)
+    if key not in _GRAPHS:
+        g = GRAPH_STEPS
+        ins = (torch.zeros((nb, g), dtype=dtype, device=dev),
+               torch.zeros((nb, g), dtype=dtype, device=dev),
+               torch.zeros((nb, g), dtype=torch.bool, device=dev),
+               torch.zeros(nb, dtype=dtype, device=dev),
+               torch.zeros(g, dtype=torch.int64, device=dev))
+        st, rec = _carry(nb, dtype, dev), _records(nb, g, dtype, dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _scan_steps(*ins, st, rec)
+        _GRAPHS[key] = (graph, ins, st, rec)
+    return _GRAPHS[key]
+
+
 def deflate_scan_plain(ds: torch.Tensor, us: torch.Tensor,
                        alive: torch.Tensor, tol: torch.Tensor) -> Deflation:
     """The kernel's two scans in PyTorch, one step at a time over the K
@@ -106,48 +189,37 @@ def deflate_scan_plain(ds: torch.Tensor, us: torch.Tensor,
     ``tol``.  A rotation's chain depth is one more than the previous
     rotation's where that one's survivor is this one's partner, else 0.
     Products and sums are written out one rounding at a time, the order
-    the kernel keeps.
+    the kernel keeps.  On a CUDA tensor the steps go GRAPH_STEPS at a time
+    through one CUDA graph of the same operations (a launch a chunk, not
+    ~40 a step).
     """
     nb, K = ds.shape
     dtype, dev = ds.dtype, ds.device
-    has = torch.zeros(nb, dtype=torch.bool, device=dev)
-    ip = torch.zeros(nb, dtype=torch.int64, device=dev)
-    dp = torch.zeros(nb, dtype=dtype, device=dev)
-    up = torch.zeros(nb, dtype=dtype, device=dev)
-    last_i = torch.full((nb,), -1, dtype=torch.int64, device=dev)
-    last_d = torch.zeros(nb, dtype=torch.int64, device=dev)
-    rec = {f: [] for f in ("fin_idx", "fin_d", "fin_u", "fin_valid",
-                           "rot_ip", "rot_c", "rot_s", "rot_m", "depths")}
-    for i in range(K):
-        di, ui, al = ds[:, i], us[:, i], alive[:, i]
-        r = sqrt_rn(up * up + ui * ui)
-        r_safe = torch.where(r == 0, 1.0, r)
-        c = ui / r_safe
-        sn = up / r_safe
-        close = has & al & (((di - dp) * c * sn).abs() <= tol)
-        fin_prev = has & al & ~close
-        fin_self = ~al
-        rec["fin_valid"].append(close | fin_prev | fin_self)
-        rec["fin_idx"].append(torch.where(fin_self, i, ip))
-        rec["fin_d"].append(torch.where(
-            close, c * c * dp + sn * sn * di, torch.where(fin_self, di, dp)))
-        rec["fin_u"].append(torch.where(fin_prev, up, 0.0))
-        rec["rot_ip"].append(ip)
-        rec["rot_c"].append(c)
-        rec["rot_s"].append(sn)
-        rec["rot_m"].append(close)
-        depth = torch.where(close & (ip == last_i), last_d + 1, 0)
-        rec["depths"].append(torch.where(close, depth, -1))
-        last_i = torch.where(close, i, last_i)
-        last_d = torch.where(close, depth, last_d)
-        has = has | al
-        dp = torch.where(al, torch.where(close, sn * sn * dp + c * c * di,
-                                         di), dp)
-        up = torch.where(al, torch.where(close, r, ui), up)
-        ip = torch.where(al, i, ip)
-    out = {f: torch.stack(v, dim=1) for f, v in rec.items()}
-    rot_i = torch.arange(K, device=dev).expand(nb, K).contiguous()
-    return Deflation(rot_i=rot_i, has_p=has, ip=ip, dp=dp, up=up, **out)
+    idx = torch.arange(K, device=dev)
+    out = _records(nb, K, dtype, dev)
+    full = K // GRAPH_STEPS * GRAPH_STEPS if ds.is_cuda else 0
+    if full:
+        graph, ins, st, rec = _scan_graph(nb, dtype, dev)
+        for key, val in _carry(nb, dtype, dev).items():
+            st[key].copy_(val)
+        ins[3].copy_(tol)
+        for s0 in range(0, full, GRAPH_STEPS):
+            cols = slice(s0, s0 + GRAPH_STEPS)
+            for buf, src in zip(ins, (ds[:, cols], us[:, cols],
+                                      alive[:, cols])):
+                buf.copy_(src)
+            ins[4].copy_(idx[cols])
+            graph.replay()
+            for f, val in rec.items():
+                out[f][:, cols] = val
+        st = {key: val.clone() for key, val in st.items()}
+    else:
+        st = _carry(nb, dtype, dev)
+    _scan_steps(ds[:, full:], us[:, full:], alive[:, full:], tol,
+                idx[full:], st, {f: v[:, full:] for f, v in out.items()})
+    rot_i = idx.expand(nb, K).contiguous()
+    return Deflation(rot_i=rot_i, has_p=st["has"], ip=st["ip"], dp=st["dp"],
+                     up=st["up"], **out)
 
 
 def _check(ds, us, alive, tol):

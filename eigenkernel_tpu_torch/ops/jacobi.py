@@ -111,6 +111,8 @@ def pair_eigh_plain(a: torch.Tensor) -> PairEigh:
     block stops after a sweep without a rotation, or after MAX_SWEEPS.
     Each product and sum rounds on its own, square roots correctly
     rounded: the order the kernel keeps, so the two agree bit for bit.
+    On a CUDA tensor each sweep replays one CUDA graph of its operations
+    (a launch a sweep, not ~25 a set), the stop read after it.
     """
     m, w = a.shape[0], a.shape[1]
     dtype, dev = a.dtype, a.device
@@ -124,31 +126,46 @@ def pair_eigh_plain(a: torch.Tensor) -> PairEigh:
     for st in torch.as_tensor(pair_sets(w), dtype=torch.int64, device=dev):
         st = st[st[:, 1] < w]                   # drop an odd w's bye
         sets.append((st[:, 0], st[:, 1]))
+
+    def sweep():
+        _sweep(A, vt, rotations, active, sets, eps)
+
+    if a.is_cuda:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            sweep()
+        sweep = graph.replay
     for _ in range(MAX_SWEEPS):
         sweeps += active.to(torch.int32)
         before = rotations.clone()
-        act = active[:, None]
-        for p, q in sets:
-            app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]
-            thr = eps * sqrt_rn((app * aqq).abs())
-            rot = act & (apq.abs() > thr)
-            tau = (aqq - app) / (2.0 * apq)
-            sign = torch.where(tau >= 0, 1.0, -1.0).to(dtype)
-            t = sign / (tau.abs() + sqrt_rn(1.0 + tau * tau))
-            c = 1.0 / sqrt_rn(1.0 + t * t)
-            s = t * c
-            _rotate(A, p, q, c, s, rot)
-            _rotate(A.transpose(1, 2), p, q, c, s, rot)
-            A[:, p, q] = torch.where(act, 0.0, A[:, p, q])
-            A[:, q, p] = torch.where(act, 0.0, A[:, q, p])
-            _rotate(vt, p, q, c, s, rot)
-            rotations += rot.sum(dim=1, dtype=torch.int32)
+        sweep()
         active &= rotations != before
         if not bool(active.any()):
             break
     return PairEigh(values=A.diagonal(dim1=1, dim2=2).clone(),
                     vectors=vt.transpose(1, 2), sweeps=sweeps,
                     rotations=rotations)
+
+
+def _sweep(A, vt, rotations, active, sets, eps: float) -> None:
+    """One sweep of the sets on the active blocks, in place."""
+    act = active[:, None]
+    dtype = A.dtype
+    for p, q in sets:
+        app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]
+        thr = eps * sqrt_rn((app * aqq).abs())
+        rot = act & (apq.abs() > thr)
+        tau = (aqq - app) / (2.0 * apq)
+        sign = torch.where(tau >= 0, 1.0, -1.0).to(dtype)
+        t = sign / (tau.abs() + sqrt_rn(1.0 + tau * tau))
+        c = 1.0 / sqrt_rn(1.0 + t * t)
+        s = t * c
+        _rotate(A, p, q, c, s, rot)
+        _rotate(A.transpose(1, 2), p, q, c, s, rot)
+        A[:, p, q] = torch.where(act, 0.0, A[:, p, q])
+        A[:, q, p] = torch.where(act, 0.0, A[:, q, p])
+        _rotate(vt, p, q, c, s, rot)
+        rotations += rot.sum(dim=1, dtype=torch.int32)
 
 
 def _check(a: torch.Tensor) -> None:

@@ -10,6 +10,9 @@ Counterpart of ``eigenkernel_tpu/parallel/multihost.py``:
   O(nnz) COO triplets; each process then densifies only its own block
   (``parallel.mesh.distribute_coo``).
 * ``is_master`` — ``check_master`` analog (processes.f90:110-119).
+* ``run_ranks`` — start a world of spawned processes on this host, each
+  joining one group on 127.0.0.1 at a free port and running a function
+  (the tests' grids, ``entry.dryrun_multichip``).
 
 A single-process run (no process group) makes every helper a no-op.  The
 broadcasts run on the current CUDA device under NCCL, which takes no CPU
@@ -19,7 +22,11 @@ tensor, and on the CPU otherwise.
 from __future__ import annotations
 
 import datetime
-from typing import Optional
+import multiprocessing as mp
+import socket
+import time
+import traceback
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -140,3 +147,57 @@ def bcast_coo(sp: Optional[SparseMatrix], size: int,
     pack = _bcast(pack)
     return SparseMatrix(size=size, rows=pack[0].astype(np.int64),
                         cols=pack[1].astype(np.int64), values=pack[2])
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn: Callable, rank: int, world: int, port: int, args: tuple,
+               backend: str) -> None:
+    torch.set_num_threads(1)
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        fn(rank, *args)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, world: int, *args, backend: str = "gloo",
+              timeout: float = TIMEOUT_S) -> None:
+    """Run ``fn(rank, *args)`` (a module-level function) on ``world``
+    spawned processes that join one ``backend`` group (NCCL: card
+    ``rank`` each), one thread each; raise unless every rank exits 0
+    within ``timeout`` seconds.  Every process still alive then is
+    killed."""
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, port, args, backend))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.time()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            raise TimeoutError(f"ranks {hung} of {fn.__name__} still "
+                               f"running after {timeout} s")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"{fn.__name__}: rank exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()

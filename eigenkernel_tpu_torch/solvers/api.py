@@ -20,6 +20,10 @@ recursion on the grid (``ops/qdwh.py``), and ``dtype='mixed'`` refines
 the grid's float32 column shares against float64 blocks of the caller's
 matrices (``ops/refine.py::refine_on_grid``): every registry name runs on
 a grid, in every dtype.
+
+:func:`fused_solver` is the JAX package's ``fused_solver``
+(``api.py:258-295``): one callable for a named pipeline on operands
+already placed, with no event log and no padding.
 """
 
 from __future__ import annotations
@@ -57,12 +61,14 @@ def _as_dtype(dtype: Any, a: Any) -> torch.dtype:
     return _DTYPES[np.dtype(dtype).name]
 
 
-def solve(a: Any, b: Any = None, solver: str = "scalapack_select",
+def solve(a: Any, b: Any = None, solver: str = "general_elpa2",
           n_vec: Optional[int] = None, block_size: int = 0,
           log: Optional[EventLog] = None, dtype: Any = None,
           device: Any = None, mesh: Optional[pm.ProcessGrid] = None,
           n_logical: Optional[int] = None) -> EigenPairs:
-    """Solve ``A x = lambda x``, or ``A x = lambda B x`` with B SPD.
+    """Solve ``A x = lambda x``, or ``A x = lambda B x`` with B SPD (the
+    default ``solver`` is the JAX package's, ``general_elpa2``, so a
+    standard problem names its solver).
 
     ``a`` and ``b`` are dense symmetric matrices (numpy arrays or torch
     tensors); they are copied to ``device`` (default: ``a``'s own device
@@ -203,3 +209,61 @@ def _solve_grid(a, b, spec, core: str, n: int, n_vec: int, block_size: int,
                             "panel": panel, "device": str(grid.device),
                             "grid": (grid.R, grid.C)},
                       grid=grid, cols=out.cols)
+
+
+def fused_solver(solver: str, n: int, n_vec: Optional[int] = None,
+                 mesh: Optional[pm.ProcessGrid] = None, block_size: int = 0):
+    """One callable for a named pipeline (JAX ``fused_solver``).
+
+    The returned ``fn(a[, b]) -> (values, vectors)`` runs the whole solve
+    with no event log, no padding and no copy: ``a`` (and ``b`` for a
+    generalized name) are tensors already on the device, or, with
+    ``mesh`` (called on every rank), DistMatrix on it, and then
+    ``vectors`` is this rank's
+    :class:`~eigenkernel_tpu_torch.parallel.mesh.ColumnShares`.  ``n``
+    must already be divisible by the panel (and, on a grid, be its own
+    ``padded_dim``).  The ``qdwh`` core raises ``ValueError``, as in the
+    JAX package.
+    """
+    if solver in AUTO_NAMES:
+        solver = resolve_auto(solver, n, generalized=solver.startswith("g"),
+                              selecting=n_vec is not None and n_vec != n,
+                              on_mesh=mesh is not None, backend="cuda")
+    spec = get_spec(solver)
+    if spec.core == "qdwh":
+        raise ValueError(
+            f"solver '{solver}' (QDWH spectral D&C) runs host-staged "
+            "recursion with data-dependent splits and cannot be fused "
+            "into one jittable computation — use solve() instead")
+    panel = min(block_size if block_size > 0 else DEFAULT_BLOCK_SIZE, n)
+    if n % panel != 0:
+        raise ValueError(f"n={n} must be divisible by panel {panel}")
+    if mesh is not None and pm.padded_dim(n, mesh) != n:
+        raise ValueError(f"n={n} must be divisible by the grid "
+                         f"{mesh.R} x {mesh.C}")
+    k = n if n_vec is None else int(n_vec)
+
+    def run(a, b=None):
+        set_matmul_precision_highest()
+        ctx = pl.SolverContext(
+            device=mesh.device if mesh is not None else a.device,
+            block_size=panel, mesh=mesh)
+        if spec.generalized:
+            out = pl.generalized_pipeline(ctx, a, b, k, spec.core,
+                                          spec.reduction)
+        else:
+            out = pl.standard_pipeline(ctx, a, k, spec.core)
+        if mesh is None:
+            return out[0][:k], out[1][:, :k]
+        keep = out.cols < k
+        return out.values[:k], pm.ColumnShares(out.values[:k],
+                                               out.vectors[:, keep],
+                                               out.cols[keep])
+
+    if spec.generalized:
+        def fn(a, b):
+            return run(a, b)
+    else:
+        def fn(a):
+            return run(a)
+    return fn

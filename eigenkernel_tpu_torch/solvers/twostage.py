@@ -20,15 +20,18 @@ On a process grid (``ctx.mesh``, JAX ``solvers/twostage.py:73-165``) the
 matrix is a :class:`~eigenkernel_tpu_torch.parallel.mesh.DistMatrix`:
 ``to_band`` runs on its blocks and hands on the band's banded lower
 storage, O(n bw) on every rank; every rank runs the chase (B3) on it, as
-the JAX package does (``twostage.py:25-32``), and the grid's
-``tridiag_eigh`` gives each rank its columns.  The back-transform works on
-those columns, whole rows: ``EK_BACKTRANSFORM=auto`` and ``blocked`` keep
-each rank's WY groups of the chase store and broadcast them in turn
-(``bulge.apply_chase_q_blocked_sharded``; "Meshes keep the sharded blocked
-schedule", ``twostage.py:138-146``); ``wf_pallas`` and ``pallas`` keep the
-store whole on every rank and run B4 or B5 on the rank's columns, as the
-JAX package replicates for them (``twostage.py:44-50``).  The band part
-broadcasts the stage-1 WY groups in turn.
+the JAX package does (``twostage.py:25-32``), in ``EK_CHASE_CHUNKS``
+sweep ranges (default 4 on a grid, 1 on one device, JAX
+``twostage.py:112-121``), and the grid's ``tridiag_eigh`` gives each rank
+its columns.  The back-transform works on those columns, whole rows:
+``EK_BACKTRANSFORM=auto`` and ``blocked`` keep each rank's WY groups of
+each finished range of the chase store (so a rank holds one range in
+flight and n^2/P words at rest, never the whole store) and broadcast them
+in turn (``bulge.apply_chase_q_blocked_sharded``; "Meshes keep the sharded
+blocked schedule", ``twostage.py:138-146``); ``wf_pallas`` and ``pallas``
+keep the store whole on every rank and run B4 or B5 on the rank's
+columns, as the JAX package replicates for them (``twostage.py:44-50``).
+The band part broadcasts the stage-1 WY groups in turn.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ from eigenkernel_tpu_torch.obs import flops as fl
 from eigenkernel_tpu_torch.ops import band as bandlib
 from eigenkernel_tpu_torch.ops import chase, tridiag as td, wf_bt
 from eigenkernel_tpu_torch.ops.backtransform import apply_chase_q_sweeps
-from eigenkernel_tpu_torch.ops.bulge import (apply_chase_q_blocked,
+from eigenkernel_tpu_torch.ops.bulge import (GridChaseStore, _group_size,
+                                             apply_chase_q_blocked,
                                              apply_chase_q_blocked_sharded,
-                                             shard_chase_store)
+                                             keep_own_groups,
+                                             n_chase_groups)
 from eigenkernel_tpu_torch.ops.wf_bt import apply_chase_q_wavefront
 from eigenkernel_tpu_torch.solvers.pipelines import _run, tridiag_eigh
 
@@ -71,6 +76,13 @@ def _bt_group() -> int:
     return int(os.environ.get("EK_BT_GROUP", "0"))
 
 
+def chase_chunks(mesh=None) -> int:
+    """``EK_CHASE_CHUNKS``: the chase's sweep ranges, 4 on a grid and 1 on
+    one device by default (JAX ``twostage.py:112-113``)."""
+    return int(os.environ.get("EK_CHASE_CHUNKS",
+                              "4" if mesh is not None else "1"))
+
+
 def back_transform(band_res: bandlib.BandResult, chase_res, z: torch.Tensor,
                    block: int, mesh=None, method: str = "") -> torch.Tensor:
     """``Q_band (Q_chase z)``; on a grid ``z`` is a rank's own columns."""
@@ -93,12 +105,21 @@ def back_transform(band_res: bandlib.BandResult, chase_res, z: torch.Tensor,
 
 
 def chase_on_grid(lower: torch.Tensor, n: int, bw: int, mesh, method: str):
-    """B3 on this rank's copy of the banded state; under the blocked
-    schedule only this rank's WY groups of the store are kept."""
-    res = chase.banded_to_tridiag(lower, n, bw)
-    if method == "blocked":
-        res = shard_chase_store(res, _bt_group(), mesh)
-    return res
+    """B3 on this rank's copy of the banded state, in
+    :func:`chase_chunks` sweep ranges; under the blocked schedule only
+    this rank's WY groups of each finished range are kept (the result's
+    HV a :class:`~.ops.bulge.GridChaseStore`), else the store is whole."""
+    chunks, group = chase_chunks(mesh), _bt_group()
+    if method != "blocked":
+        return chase.band_to_tridiag_chunked(lower, n, bw, chunks,
+                                             group=group)
+    g = _group_size(group, max(bw, 1))
+    store = GridChaseStore(g, n_chase_groups(n, g), chase.n_positions(n, bw),
+                           max(bw, 1), {})
+    res = chase.band_to_tridiag_chunked(lower, n, bw, chunks,
+                                        keep_own_groups(store, n, mesh),
+                                        group)
+    return res._replace(HV=store)
 
 
 def sep_two_stage(ctx, a, n_vec: int):
@@ -112,7 +133,8 @@ def sep_two_stage(ctx, a, n_vec: int):
     band_res = _run(ctx, "sep:full_to_band", bandlib.to_band, a, bw,
                     flops=fl.full_to_band(n, bw))
     chase_res = _run(ctx, "sep:band_to_tridiag", chase.band_to_tridiag,
-                     band_res.band, bw, flops=fl.band_to_tridiag(n, bw))
+                     band_res.band, bw, chase_chunks(),
+                     flops=fl.band_to_tridiag(n, bw))
     # the dense band matrix is dead once the chase has read it: drop it
     # before the eigenvector stages
     band_res = band_res._replace(band=None)

@@ -53,7 +53,7 @@ _EDITS = (
     ("namespace {\n", _PROBE),
     ("    if (carry) prefetch_rows(grow + 2 * b * W, pref, b * W);\n  }\n",
      "  EK_PROBE(0);\n"),
-    ("  if (tid == 0) ht[static_cast<size_t>(c) * nt + t] = th;\n"
+    ("  if (tid == 0) ht[at] = th;\n"
      "  __syncthreads();\n", "  EK_PROBE(1);\n"),
     ("  const T tt_vdv = th * th * vdv;\n", "  EK_PROBE(2);\n"),
     ("          A.st(r, b - 1 + s - r, l[k] - th * (vr * cl[s]));\n      }\n"
@@ -106,7 +106,7 @@ def profile(lib, band_m: torch.Tensor, b: int):
     fn, res_fn = getattr(lib, f"ek_band_chase_{tag}"), getattr(
         lib, f"ek_band_chase_resident_{tag}")
     res_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     window = int(chase.branch(b, band_m.dtype) == "window")
     if not window:
@@ -121,7 +121,8 @@ def profile(lib, band_m: torch.Tensor, b: int):
     build.check(lib.ek_prof_reset(), "reset")
     stream = torch.cuda.current_stream().cuda_stream
     build.check(fn(lb.data_ptr(), hv.data_ptr(), ht.data_ptr(),
-                   bar.data_ptr(), n, b, hv.shape[1], window, grid, stream),
+                   bar.data_ptr(), n, b, hv.shape[1], 0, n - 3, window, grid,
+                   stream),
                 "chase")
     torch.cuda.synchronize()
     out = (ctypes.c_ulonglong * 8)()

@@ -712,6 +712,48 @@ def test_banded_chase_entry_on_card_bit_for_bit(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,bw,chunks,group,cap", [
+    (4096, 64, 4, 0, 0),      # window branch, a CTA a lane, the carry
+    (4096, 64, 7, 0, 5),      # lane striding on 5 CTAs
+    (1000, 64, 300, 4, 0),    # ranges of 4 sweeps, fewer than 5 lanes
+    (700, 8, 4, 0, 0),        # b = 8: a short window
+    (600, 128, 4, 0, 0),      # the global branch (f64; f32 keeps the window)
+    (300, 8, 40, 0, 0)])      # many short ranges
+def test_chase_ranges_are_the_whole_chase_on_card(cuda_device, monkeypatch,
+                                                  dtype, n, bw, chunks,
+                                                  group, cap):
+    # B3 over sweep ranges, one launch each, against B3 whole: the same
+    # steps in the same order within a sweep, so the same bits
+    monkeypatch.setattr(chase, "GRID_CAP", cap)
+    bnd = _chase_input(n, bw, 80 + n, dtype, cuda_device)
+    lower = chase.lower_storage(bnd, bw)
+    whole = chase.banded_to_tridiag(lower, n, bw)
+    before = chase.LAUNCHES
+    got = chase.band_to_tridiag_chunked(lower, n, bw, chunks, group=group)
+    torch.cuda.synchronize()
+    ranges = chase.chase_ranges(n, bw, chunks, group)
+    assert len(ranges) > 1 and chase.LAUNCHES == before + len(ranges)
+    assert chase.BRANCH == chase.branch(bw, dtype)
+    last = ranges[-1][1] - ranges[-1][0] + 1
+    assert chase.GRID == min(cap or last, last, chase.max_lanes(n, bw))
+    for f in ("d", "e", "HV", "HT"):
+        assert torch.equal(getattr(got, f), getattr(whole, f)), f
+    # the plain version over the same ranges, against the ranges' kernel
+    # (at n = 4096 the kernel and the plain whole chase drift apart in d
+    # and e past _check_chase's small-n bars, as phase 6 of the smoke
+    # records; there the bits against the whole kernel are the check)
+    if n <= 1000:
+        _check_chase(got, bnd, dtype)
+        plain = chase.band_to_tridiag_chunked(lower, n, bw, chunks,
+                                              group=group, plain=True)
+        lam = _spectrum(got)
+        bar = 1e-12 if dtype == torch.float64 else 5e-5
+        assert np.abs(_spectrum(plain) - lam).max() <= \
+            bar * np.abs(lam).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("kernel", ["wf_bt", "chase_bt"])
 def test_back_transform_kernels_on_a_column_share_on_card(cuda_device, dtype,
                                                           kernel):

@@ -4,7 +4,8 @@
 
 :func:`run_ranks` starts ``world`` spawned processes that join one gloo
 group on 127.0.0.1 at a free port, each with one thread, and runs a
-function of this module in each; a rank writes what the test reads into
+function of this module in each (``parallel/multihost.run_ranks``, the
+port's own runner); a rank writes what the test reads into
 ``out_dir``.  A rank that fails or outlives the timeout fails the call,
 and every process still alive is killed.  This module imports torch and
 the port only, so a rank starts without JAX.
@@ -13,67 +14,24 @@ the port only, so a rank starts without JAX.
 from __future__ import annotations
 
 import contextlib
-import multiprocessing as mp
 import os
-import socket
-import time
-import traceback
 
 import numpy as np
+
+from eigenkernel_tpu_torch.parallel.multihost import free_port  # noqa: F401
 
 TIMEOUT_S = 120
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _entry(fn_name: str, rank: int, world: int, port: int, args: tuple,
-           backend: str) -> None:
-    import torch
-
-    torch.set_num_threads(1)
-    from eigenkernel_tpu_torch.parallel import multihost
-
-    multihost.init_distributed(f"127.0.0.1:{port}", world, rank, backend)
-    try:
-        globals()[fn_name](rank, *args)
-    except BaseException:
-        traceback.print_exc()
-        raise
-    finally:
-        torch.distributed.destroy_process_group()
-
-
 def run_ranks(fn_name: str, world: int, *args, backend: str = "gloo",
               timeout: float = TIMEOUT_S) -> None:
-    """Run ``fn_name(rank, *args)`` on ``world`` ranks; raise unless every
-    rank exits 0 within ``timeout`` seconds."""
-    ctx = mp.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_entry, args=(fn_name, r, world, port, args,
-                                              backend))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.time() + timeout
-    try:
-        for p in procs:
-            p.join(max(0.0, deadline - time.time()))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        if hung:
-            raise TimeoutError(f"ranks {hung} of {fn_name} still running "
-                               f"after {timeout} s")
-        codes = [p.exitcode for p in procs]
-        if any(codes):
-            raise RuntimeError(f"{fn_name}: rank exit codes {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-            p.join()
+    """Run ``fn_name(rank, *args)``, a function of this module, on
+    ``world`` ranks (``multihost.run_ranks``); raise unless every rank
+    exits 0 within ``timeout`` seconds."""
+    from eigenkernel_tpu_torch.parallel import multihost
+
+    multihost.run_ranks(globals()[fn_name], world, *args, backend=backend,
+                        timeout=timeout)
 
 
 # ---------------------------------------------------------------------------
@@ -330,26 +288,27 @@ def _largest_in_pipeline(a, b, grid, gemm_block: int, method: str) -> int:
     """The most elements of any tensor the ops of one ``general_elpa2``
     pipeline under ``EK_BACKTRANSFORM=method`` made on this rank (torch's
     dispatcher sees each op's outputs), at a bandwidth of half the
-    reductions' panel width, the chase's reflector store left out: it is
-    (n, T, bw) on every rank during the chase, and under ``wf_pallas``
-    whole, with its group-major copies, for B4."""
+    reductions' panel width, the chase left out: under ``wf_pallas`` its
+    reflector store is (n, T, bw) on every rank, whole, with its
+    group-major copies for B4 (under the blocked schedule a rank holds
+    one sweep range of it; ``test_torch_chunked.py`` measures that)."""
     from eigenkernel_tpu_torch.ops import chase, wf_bt
     from eigenkernel_tpu_torch.solvers import pipelines as pl
 
     mode = _Largest()
 
     def unwatched(run):
-        def call(*args):
+        def call(*args, **kwargs):
             mode.paused = True
             try:
-                return run(*args)
+                return run(*args, **kwargs)
             finally:
                 mode.paused = False
         return call
 
     ctx = pl.SolverContext(device=grid.device, block_size=gemm_block // 2,
                            mesh=grid, gemm_block=gemm_block)
-    store = [(chase, "banded_to_tridiag"), (wf_bt, "group_stores"),
+    store = [(chase, "band_to_tridiag_chunked"), (wf_bt, "group_stores"),
              (wf_bt, "_composite_views")]
     runs = [getattr(mod, name) for mod, name in store]
     for (mod, name), run in zip(store, runs):
@@ -544,3 +503,50 @@ def card_two_stage(rank: int, shape, a, b, out_dir: str) -> None:
             eval_residual_norm(dm, pairs, k, bm)[2],
             eval_orthogonality(pairs, 1, k, bm)])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def chase_store_checks(rank: int, shape, lower, n: int, bw: int, group: int,
+                       out_dir: str) -> None:
+    """The grid's chase (``twostage.chase_on_grid``, blocked schedule) of
+    the banded storage ``lower`` at ``EK_CHASE_CHUNKS`` = 4 and 1, with
+    ``EK_BT_GROUP=group``: for each, the most elements of any tensor the
+    chase made on this rank, the WY groups it kept, whether each kept
+    slab equals that group's slab of one device's whole chase bit for
+    bit, and d and e."""
+    import torch
+
+    from eigenkernel_tpu_torch.ops import bulge, chase
+    from eigenkernel_tpu_torch.solvers import twostage
+
+    grid = _grid(shape)
+    lower = torch.tensor(lower)
+    whole = chase.banded_to_tridiag(lower, n, bw)
+    out = {}
+    for chunks in (4, 1):
+        mode = _Largest()
+        with _env({"EK_CHASE_CHUNKS": str(chunks),
+                   "EK_BT_GROUP": str(group)}), mode:
+            res = twostage.chase_on_grid(lower, n, bw, grid, "blocked")
+        st = res.HV
+        same = [torch.equal(st.mine[G], torch.cat(
+            [hv, ht[..., None]], dim=2)) for G in sorted(st.mine)
+            for hv, ht in [bulge._group_slab(whole.HV, whole.HT, n, st.g,
+                                             G)]]
+        out[f"c{chunks}/most"] = np.array(mode.most)
+        out[f"c{chunks}/groups"] = np.array(sorted(st.mine), dtype=np.int64)
+        out[f"c{chunks}/n_groups"] = np.array(st.n_groups)
+        out[f"c{chunks}/same"] = np.array(same)
+        out[f"c{chunks}/de_equal"] = np.array(
+            torch.equal(res.d, whole.d) and torch.equal(res.e, whole.e))
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def sweep_on_grid(rank: int, shape, n: int, n_two: int, out_dir: str) -> None:
+    """``entry.sweep_solvers_on_grid`` at float64 on the grid: every
+    registry name's max residual."""
+    from eigenkernel_tpu_torch import entry
+
+    got = entry.sweep_solvers_on_grid(_grid(shape), n, np.float64, 1e-12,
+                                      n_two)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             names=np.array(list(got)), resid=np.array(list(got.values())))
