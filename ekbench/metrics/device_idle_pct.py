@@ -1,0 +1,10 @@
+"""device_idle_pct (layer: device): the share of the profiled solve's
+wall interval in which no operation ran on the card,
+1 - (union of device activity intervals) / interval."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
