@@ -1638,7 +1638,7 @@ def mesh_rank(rank, world, port, backend, shape, device, jobs, out_dir):
                 pm.barrier(grid)
                 seconds = time.time() - t0
             launches = read_launches()
-            stats = (grid.stats.calls, grid.stats.seconds, grid.stats.bytes)
+            stats = (grid.stats.calls, grid.stats.bytes)
             # the solve's peak: each stage's reset of the peak keeps the
             # peak before it in peaks["_before"]
             peak = max(torch.cuda.max_memory_allocated(),
@@ -1811,10 +1811,10 @@ def report_grid(tag, world, out_dir, ref_values, norm2, want,
            for r in range(world)]
     for r, out in enumerate(res):
         stages = json.loads(str(out["stages"]))
-        calls, secs, nbytes = out["stats"]
+        calls, nbytes = out["stats"]
         print(f"  {tag} rank {r}: solve {float(out['seconds']):.3f} s, peak "
               f"{float(out['peak']) / 2**30:.2f} GiB, {int(calls)} "
-              f"collectives, {secs:.3f} s in them, {nbytes / 2**20:.1f} MiB; "
+              f"collectives, {nbytes / 2**20:.1f} MiB; "
               f"launches {json.loads(str(out['launches']))}")
         print("    " + ", ".join(f"{name} {val:.6f}" for name, val in
                                  stages.items() if name.startswith(
@@ -1880,8 +1880,7 @@ def mesh_one_card(dev, jobs, out_dir, ref, norm2):
              "stages": json.loads(str(r["stages"])),
              "seconds": float(r["seconds"]),
              "peak_gib": float(r["peak"]) / 2**30,
-             "collectives": int(r["stats"][0]),
-             "collective_s": float(r["stats"][1])} for r in res]
+             "collectives": int(r["stats"][0])} for r in res]
     # B1 and B2 on every rank against the single-device kernels on the
     # same (d, e): eigenvalues and the first shifted solve's lanes
     sel = [dict(np.load(os.path.join(out_dir, f"select_rank{r}.npz")))
@@ -1971,8 +1970,7 @@ def phase_mesh_gen(dev, tmp, gen_pair):
              "peak_gib": float(r["peak"]) / 2**30,
              "one_device_peak_gib": PEAK_GIB[single],
              "collectives": int(r["stats"][0]),
-             "collective_s": float(r["stats"][1]),
-             "collective_mib": float(r["stats"][2]) / 2**20} for r in res]
+             "collective_mib": float(r["stats"][1]) / 2**20} for r in res]
         if "chase" not in want:
             continue
         # B3 on every rank against one device's dense-entry B3 on the band
@@ -2083,8 +2081,7 @@ def phase_mesh_extra(dev, tmp):
              "peak_gib": float(r["peak"]) / 2**30,
              "one_device_peak_gib": PEAK_GIB[single],
              "collectives": int(r["stats"][0]),
-             "collective_s": float(r["stats"][1]),
-             "collective_mib": float(r["stats"][2]) / 2**20} for r in res]
+             "collective_mib": float(r["stats"][1]) / 2**20} for r in res]
         if "pair_eigh" in want:
             for r, rk in enumerate(res):
                 calls, nbytes, n_rounds = rk["jacobi_core"]

@@ -24,12 +24,15 @@ ipratios.dat and log.json come from process 0, the eigenvector files from
 every process in turn.  Every name runs on a grid, in every ``--dtype``
 (``mixed``: the float64 blocks of A and B are the ones densified here).
 ``--profile <dir>`` traces the solve with ``torch.profiler`` into
-``<dir>/trace_rank<r>.json``.
+``<dir>/trace_rank<r>.json``, and writes beside it
+``<dir>/spans_rank<r>.json``: every kernel and idle gap of the solve put
+down to the program's spans (``obs/profile.py::summarize``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
@@ -127,7 +130,9 @@ def _main(arg, argv, t_start) -> int:
     from eigenkernel_tpu_torch.core import config as cfg
     from eigenkernel_tpu_torch.io import matrix_market as mm
     from eigenkernel_tpu_torch.io import outputs
+    from eigenkernel_tpu_torch.obs import events
     from eigenkernel_tpu_torch.obs.events import EventLog
+    from eigenkernel_tpu_torch.obs.profile import summarize
     from eigenkernel_tpu_torch.parallel import mesh as pm
     from eigenkernel_tpu_torch.parallel import multihost as mh
     from eigenkernel_tpu_torch.solvers.api import solve
@@ -270,14 +275,16 @@ def _main(arg, argv, t_start) -> int:
         print("\n----- Solver Call -----")
     t0 = time.time()
     try:
-        with _profiler(arg, device) as prof:
+        with _profiler(arg, device) as prof, \
+                events.stage("main:eigen_solver", log):
             pairs = solve(a_mat, b_mat, solver=arg.solver_type,
                           n_vec=arg.n_vec if spec.selecting else None,
                           block_size=arg.block_size, log=log,
                           dtype="mixed" if arg.dtype == "mixed" else None,
                           device=device, mesh=grid)
             if device.type == "cuda":
-                torch.cuda.synchronize(device)
+                with events.span("wait:drain"):
+                    torch.cuda.synchronize(device)
     except Exception as exc:
         # terminate() analog: dump accumulated events, then fail with a
         # coherent message
@@ -290,6 +297,10 @@ def _main(arg, argv, t_start) -> int:
         os.makedirs(arg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(
             os.path.join(arg.profile_dir, f"trace_rank{rank}.json"))
+        with open(os.path.join(arg.profile_dir, f"spans_rank{rank}.json"),
+                  "w") as f:
+            json.dump(summarize(prof.profiler.kineto_results.events(),
+                                log.spans()), f, indent=1)
 
     values_host = pairs.values.double().cpu().numpy()
     if spec.selecting and master:

@@ -39,6 +39,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.ops.householder import (GridReflectors,
                                                    _householder, apply_wy,
                                                    apply_wy_grid,
@@ -92,21 +93,23 @@ def to_band(a, bw: int, mesh: Optional[pm.ProcessGrid] = None) -> BandResult:
     taus = torch.zeros(n, dtype=dtype, device=dev)
     for s in range(0, max(n - bw, 0), bw):
         As = A[s:, s:]                     # trailing block, a view of A
-        V2, tp = _qr_panel(As[bw:, :bw].clone())
-        t = wy_t_factor(V2, tp)
-        av = As[:, bw:] @ V2               # A V, V = [0; V2]
-        u = av @ t
-        u[bw:] -= 0.5 * (V2 @ (t.T @ (V2.T @ av[bw:]) @ t))
-        u1, u2 = u[:bw], u[bw:]
-        # one concatenated rank-2b GEMM on the trailing block, as the JAX
-        # package does: u2 V2^T + V2 u2^T = [u2 V2] [V2 u2]^T
-        uv = torch.cat([u2, V2], dim=1)
-        vu = torch.cat([V2, u2], dim=1)
-        As[bw:, bw:].addmm_(uv, vu.T, alpha=-1.0)
-        As[bw:, :bw] -= V2 @ u1.T
-        As[:bw, bw:] -= u1 @ V2.T
-        V[s + bw:, s:s + bw] = V2
-        taus[s:s + bw] = tp
+        with events.span("to_band:panel"):
+            V2, tp = _qr_panel(As[bw:, :bw].clone())
+            t = wy_t_factor(V2, tp)
+        with events.span("to_band:update"):
+            av = As[:, bw:] @ V2           # A V, V = [0; V2]
+            u = av @ t
+            u[bw:] -= 0.5 * (V2 @ (t.T @ (V2.T @ av[bw:]) @ t))
+            u1, u2 = u[:bw], u[bw:]
+            # one concatenated rank-2b GEMM on the trailing block, as the
+            # JAX package does: u2 V2^T + V2 u2^T = [u2 V2] [V2 u2]^T
+            uv = torch.cat([u2, V2], dim=1)
+            vu = torch.cat([V2, u2], dim=1)
+            As[bw:, bw:].addmm_(uv, vu.T, alpha=-1.0)
+            As[bw:, :bw] -= V2 @ u1.T
+            As[:bw, bw:] -= u1 @ V2.T
+            V[s + bw:, s:s + bw] = V2
+            taus[s:s + bw] = tp
     # clear the eliminated entries' roundoff outside the band, symmetrize
     A.tril_(bw).triu_(-bw)
     band = A + A.T
@@ -131,26 +134,28 @@ def _to_band_grid(a: pm.DistMatrix, bw: int,
     gb = groups[0][1]                      # a multiple of bw
     for s in range(0, max(n - bw, 0), bw):
         m = n - s
-        V2, tp = _qr_panel(pm.gather_block(x, s + bw, n, s, s + bw))
-        t = wy_t_factor(V2, tp)
-        av = pm.times_tall(x, V2, (s, n), (s + bw, n))      # A V, (m, bw)
-        u = av @ t
-        u[bw:] -= 0.5 * (V2 @ (t.T @ (V2.T @ av[bw:]) @ t))
-        a0, a1 = x.rows(s, n)
-        b0, b1 = x.cols(s, n)
-        if a1 > a0 and b1 > b0:
-            vf = torch.zeros_like(u)
-            vf[bw:] = V2
-            uv = torch.cat([u, vf], dim=1)
-            vu = torch.cat([vf, u], dim=1)
-            A[a0:a1, b0:b1].addmm_(uv[x.row0 + a0 - s:x.row0 + a1 - s],
-                                   vu[x.col0 + b0 - s:x.col0 + b1 - s].T,
-                                   alpha=-1.0)
-        i = s // gb
-        if i in mine:
-            gs = groups[i][0]
-            mine[i][s + bw - gs:, s - gs:s - gs + bw] = V2
-        taus[s:s + bw] = tp
+        with events.span("to_band:panel"):
+            V2, tp = _qr_panel(pm.gather_block(x, s + bw, n, s, s + bw))
+            t = wy_t_factor(V2, tp)
+        with events.span("to_band:update"):
+            av = pm.times_tall(x, V2, (s, n), (s + bw, n))  # A V, (m, bw)
+            u = av @ t
+            u[bw:] -= 0.5 * (V2 @ (t.T @ (V2.T @ av[bw:]) @ t))
+            a0, a1 = x.rows(s, n)
+            b0, b1 = x.cols(s, n)
+            if a1 > a0 and b1 > b0:
+                vf = torch.zeros_like(u)
+                vf[bw:] = V2
+                uv = torch.cat([u, vf], dim=1)
+                vu = torch.cat([vf, u], dim=1)
+                A[a0:a1, b0:b1].addmm_(
+                    uv[x.row0 + a0 - s:x.row0 + a1 - s],
+                    vu[x.col0 + b0 - s:x.col0 + b1 - s].T, alpha=-1.0)
+            i = s // gb
+            if i in mine:
+                gs = groups[i][0]
+                mine[i][s + bw - gs:, s - gs:s - gs + bw] = V2
+            taus[s:s + bw] = tp
     return BandResult(band=None, V=GridReflectors(groups, mine), taus=taus,
                       bw=bw, lower=banded_lower(x, bw))
 
@@ -188,6 +193,7 @@ def apply_band_q(res: BandResult, z: torch.Tensor, block: int = 64,
     :func:`eigenkernel_tpu_torch.ops.householder.apply_wy`); on a grid
     ``z`` is a rank's own columns and each group is broadcast from its
     rank in turn.  Returns a new tensor."""
-    if mesh is not None:
-        return apply_wy_grid(res.V, res.taus, z, mesh)
-    return apply_wy(res.V, res.taus, z, block)
+    with events.span("bt:band"):
+        if mesh is not None:
+            return apply_wy_grid(res.V, res.taus, z, mesh)
+        return apply_wy(res.V, res.taus, z, block)

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.parallel import mesh as pm
 
 GEMM_BLOCK = 256  # the grid's panel width (JAX DEFAULT_GEMM_BLOCK)
@@ -42,7 +43,8 @@ class NotPositiveDefiniteError(ValueError):
 
 
 def _raise_if_broken(info, at: int, n: int) -> None:
-    bad = int(info)
+    with events.span("wait:cholesky_info"):
+        bad = int(info)
     if bad != 0:
         raise NotPositiveDefiniteError(
             f"cholesky: leading minor {at + bad} of the {n}x{n} matrix is "

@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.parallel import mesh as pm
 
@@ -404,123 +405,129 @@ def _merge_one(w1, w2, q1, q2, e_mid, iters: int, grid=None,
     rho = e_mid.abs()
     s_sign = torch.where(e_mid >= 0, 1.0, -1.0).to(dtype)
 
-    d = torch.cat([w1, w2], dim=1)
-    ends = torch.stack([q1[:, K2 - 1, :], q2[:, 0, :]], dim=1)
-    if q_shares is not None:
-        a, b = _lanes(K2, grid)
-        ends = pm.gather_slots(ends, (slice(None), slice(None), slice(a, b)),
-                               (nb, 2, K2), grid)
-    u = torch.cat([ends[:, 0], s_sign[:, None] * ends[:, 1]], dim=1)
-    sortp = torch.argsort(d, dim=1, stable=True)
-    ds = d.gather(1, sortp)
-    us = u.gather(1, sortp)
+    with events.span("dc:deflate"):
+        d = torch.cat([w1, w2], dim=1)
+        ends = torch.stack([q1[:, K2 - 1, :], q2[:, 0, :]], dim=1)
+        if q_shares is not None:
+            a, b = _lanes(K2, grid)
+            ends = pm.gather_slots(
+                ends, (slice(None), slice(None), slice(a, b)), (nb, 2, K2),
+                grid)
+        u = torch.cat([ends[:, 0], s_sign[:, None] * ends[:, 1]], dim=1)
+        sortp = torch.argsort(d, dim=1, stable=True)
+        ds = d.gather(1, sortp)
+        us = u.gather(1, sortp)
 
-    scale = torch.maximum(ds.abs().amax(dim=1), rho)
-    tol = 8.0 * eps * scale.clamp(min=tiny)
-    alive = rho[:, None] * us.abs() > tol[:, None]   # not type-1 deflated
+        scale = torch.maximum(ds.abs().amax(dim=1), rho)
+        tol = 8.0 * eps * scale.clamp(min=tiny)
+        alive = rho[:, None] * us.abs() > tol[:, None]   # not type-1 deflated
 
-    # type-2 deflation scan and rotation chain depths (kernel D1)
-    df = deflate_scan(ds, us, alive, tol)
-    # finalized entries and the last survivor into a buffer one column
-    # wider: column K takes the dropped writes
-    drop = torch.where(df.fin_valid, df.fin_idx, K)
-    flush = torch.where(df.has_p, df.ip, K)[:, None]
-    d2 = torch.cat([ds, ds.new_zeros(nb, 1)], dim=1)
-    d2.scatter_(1, drop, df.fin_d).scatter_(1, flush, df.dp[:, None])
-    u2 = torch.zeros_like(d2)
-    u2.scatter_(1, drop, df.fin_u).scatter_(1, flush, df.up[:, None])
-    d2, u2 = d2[:, :K], u2[:, :K]
+        # type-2 deflation scan and rotation chain depths (kernel D1)
+        df = deflate_scan(ds, us, alive, tol)
+        # finalized entries and the last survivor into a buffer one column
+        # wider: column K takes the dropped writes
+        drop = torch.where(df.fin_valid, df.fin_idx, K)
+        flush = torch.where(df.has_p, df.ip, K)[:, None]
+        d2 = torch.cat([ds, ds.new_zeros(nb, 1)], dim=1)
+        d2.scatter_(1, drop, df.fin_d).scatter_(1, flush, df.dp[:, None])
+        u2 = torch.zeros_like(d2)
+        u2.scatter_(1, drop, df.fin_u).scatter_(1, flush, df.up[:, None])
+        d2, u2 = d2[:, :K], u2[:, :K]
 
-    active = u2 != 0
-    m = active.sum(dim=1)
-    # compact: active first, d order preserved
-    pi = torch.argsort((~active).to(torch.int32), dim=1, stable=True)
-    dc = d2.gather(1, pi)
-    uc = u2.gather(1, pi)
+        active = u2 != 0
+        m = active.sum(dim=1)
+        # compact: active first, d order preserved
+        pi = torch.argsort((~active).to(torch.int32), dim=1, stable=True)
+        dc = d2.gather(1, pi)
+        uc = u2.gather(1, pi)
 
     j0, j1 = _lanes(K, grid)
     KL = j1 - j0
-    anchor, mu, dd = _secular_newton(dc, uc, rho, m, iters,
-                                     None if grid is None else (j0, j1))
-    ji = torch.arange(K, device=dev)
-    jm = ji[j0:j1]
-    act_i = ji[None, :] < m[:, None]               # (nb, K) poles
-    act = jm[None, :] < m[:, None]                 # (nb, KL) lanes
-    both_act = act_i[:, :, None] & act[:, None, :]
-    eye = ji[:, None] == jm[None, :]
-    valid = both_act & ~eye
+    with events.span("dc:secular"):
+        anchor, mu, dd = _secular_newton(dc, uc, rho, m, iters,
+                                         None if grid is None else (j0, j1))
+    with events.span("dc:vectors"):
+        ji = torch.arange(K, device=dev)
+        jm = ji[j0:j1]
+        act_i = ji[None, :] < m[:, None]               # (nb, K) poles
+        act = jm[None, :] < m[:, None]                 # (nb, KL) lanes
+        both_act = act_i[:, :, None] & act[:, None, :]
+        eye = ji[:, None] == jm[None, :]
+        valid = both_act & ~eye
 
-    # Gu/Eisenstat weights: uhat_i^2 = prod_j (lam_j - dc_i) /
-    # (rho prod_{j != i} (dc_j - dc_i)), paired j <-> j
-    lam_m_d = mu[:, None, :] - dd                  # lam_j - dc_i
-    neg_gap = dc[:, None, j0:j1] - dc[:, :, None]  # dc_j - dc_i
-    ratio = torch.where(valid, lam_m_d / torch.where(valid, neg_gap, 1.0),
-                        1.0)
-    del neg_gap
-    rho_safe = torch.where(rho == 0, 1.0, rho)[:, None]
-    if grid is None:
-        prod = ratio.prod(dim=2)
-        diag_term = lam_m_d.diagonal(dim1=1, dim2=2)
-        uhat2 = torch.where(act_i, diag_term * prod / rho_safe, 0.0)
-    else:
-        # lane i holds the factor lam_i - dc_i; the lanes' partial
-        # products are multiplied across the grid
-        ratio = torch.where(eye & both_act, lam_m_d, ratio)
-        prod = pm.all_reduce(ratio.prod(dim=2), grid, op="prod")
-        uhat2 = torch.where(act_i, prod / rho_safe, 0.0)
-    del ratio, lam_m_d
-    uhat = torch.sqrt(uhat2.clamp(min=0.0))
-    uhat = torch.where(uc < 0, -uhat, uhat)
+        # Gu/Eisenstat weights: uhat_i^2 = prod_j (lam_j - dc_i) /
+        # (rho prod_{j != i} (dc_j - dc_i)), paired j <-> j
+        lam_m_d = mu[:, None, :] - dd                  # lam_j - dc_i
+        neg_gap = dc[:, None, j0:j1] - dc[:, :, None]  # dc_j - dc_i
+        ratio = torch.where(valid, lam_m_d / torch.where(valid, neg_gap, 1.0),
+                            1.0)
+        del neg_gap
+        rho_safe = torch.where(rho == 0, 1.0, rho)[:, None]
+        if grid is None:
+            prod = ratio.prod(dim=2)
+            diag_term = lam_m_d.diagonal(dim1=1, dim2=2)
+            uhat2 = torch.where(act_i, diag_term * prod / rho_safe, 0.0)
+        else:
+            # lane i holds the factor lam_i - dc_i; the lanes' partial
+            # products are multiplied across the grid
+            ratio = torch.where(eye & both_act, lam_m_d, ratio)
+            prod = pm.all_reduce(ratio.prod(dim=2), grid, op="prod")
+            uhat2 = torch.where(act_i, prod / rho_safe, 0.0)
+        del ratio, lam_m_d
+        uhat = torch.sqrt(uhat2.clamp(min=0.0))
+        uhat = torch.where(uc < 0, -uhat, uhat)
 
-    # eigenvectors in compacted space: S[i, j] = uhat_i / (dc_i - lam_j)
-    den = torch.where(both_act, dd - mu[:, None, :], 1.0)
-    del dd
-    s = torch.where(both_act, uhat[:, :, None] / den,
-                    eye.to(dtype).expand(nb, K, KL))
-    del den
-    s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True)
-    lam_all = torch.where(act, anchor + mu, dc[:, j0:j1])
+        # eigenvectors in compacted space: S[i, j] = uhat_i / (dc_i - lam_j)
+        den = torch.where(both_act, dd - mu[:, None, :], 1.0)
+        del dd
+        s = torch.where(both_act, uhat[:, :, None] / den,
+                        eye.to(dtype).expand(nb, K, KL))
+        del den
+        s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True)
+        lam_all = torch.where(act, anchor + mu, dc[:, j0:j1])
 
-    # un-compact rows (compacted -> sorted order), one junk row below
-    spad = torch.zeros((nb, K + 1, KL), dtype=dtype, device=dev)
-    spad.scatter_(1, pi[:, :, None].expand(nb, K, KL), s)
-    del s
-    # replay the type-2 rotations in reverse (G^T on row pairs), batched
-    # by chain depth: the rotations of one depth touch disjoint rows.  One
-    # host read of the deepest chain a level; no pass when nothing
-    # deflated type-2.
-    maxd = int(df.depths.max())
-    for depth in range(maxd, -1, -1):
-        sel = df.depths == depth
-        i1 = torch.where(sel, df.rot_ip, K)[:, :, None].expand(nb, K, KL)
-        i2 = torch.where(sel, df.rot_i, K)[:, :, None].expand(nb, K, KL)
-        cb = torch.where(sel, df.rot_c, 1.0)[:, :, None]
-        sb = torch.where(sel, df.rot_s, 0.0)[:, :, None]
-        r1 = spad.gather(1, i1)
-        r2 = spad.gather(1, i2)
-        spad.scatter_(1, i1, cb * r1 + sb * r2)
-        spad.scatter_(1, i2, -sb * r1 + cb * r2)
-        del r1, r2
-    # un-sort rows (sorted -> concatenated order)
-    s_o = torch.empty((nb, K, KL), dtype=dtype, device=dev)
-    s_o.scatter_(1, sortp[:, :, None].expand(nb, K, KL), spad[:, :K])
-    del spad
-    if grid is None:
-        # sort the columns by eigenvalue
-        cperm = torch.argsort(lam_all, dim=1, stable=True)
-        w = lam_all.gather(1, cperm)
-        s_o = s_o.gather(2, cperm[:, None, :].expand(nb, K, K))
-    else:
-        w = lam_all          # a merge above re-sorts its poles anyway
-    if q_shares is None:
-        return w, torch.cat([q1 @ s_o[:, :K2, :], q2 @ s_o[:, K2:, :]], dim=1)
-    q = s_o.new_zeros((nb, K, KL))
-    shape = tuple(q_shares.shape)
-    for src, part in pm.rank_shares(q_shares, grid, [shape] * grid.size):
-        a, b = pm.share(K2, grid.size, src)
-        q[:, :K2] += part[:, 0] @ s_o[:, a:b]
-        q[:, K2:] += part[:, 1] @ s_o[:, K2 + a:K2 + b]
-    return w, q
+        # un-compact rows (compacted -> sorted order), one junk row below
+        spad = torch.zeros((nb, K + 1, KL), dtype=dtype, device=dev)
+        spad.scatter_(1, pi[:, :, None].expand(nb, K, KL), s)
+        del s
+        # replay the type-2 rotations in reverse (G^T on row pairs), batched
+        # by chain depth: the rotations of one depth touch disjoint rows.  One
+        # host read of the deepest chain a level; no pass when nothing
+        # deflated type-2.
+        with events.span("wait:dc_depths"):
+            maxd = int(df.depths.max())
+        for depth in range(maxd, -1, -1):
+            sel = df.depths == depth
+            i1 = torch.where(sel, df.rot_ip, K)[:, :, None].expand(nb, K, KL)
+            i2 = torch.where(sel, df.rot_i, K)[:, :, None].expand(nb, K, KL)
+            cb = torch.where(sel, df.rot_c, 1.0)[:, :, None]
+            sb = torch.where(sel, df.rot_s, 0.0)[:, :, None]
+            r1 = spad.gather(1, i1)
+            r2 = spad.gather(1, i2)
+            spad.scatter_(1, i1, cb * r1 + sb * r2)
+            spad.scatter_(1, i2, -sb * r1 + cb * r2)
+            del r1, r2
+        # un-sort rows (sorted -> concatenated order)
+        s_o = torch.empty((nb, K, KL), dtype=dtype, device=dev)
+        s_o.scatter_(1, sortp[:, :, None].expand(nb, K, KL), spad[:, :K])
+        del spad
+        if grid is None:
+            # sort the columns by eigenvalue
+            cperm = torch.argsort(lam_all, dim=1, stable=True)
+            w = lam_all.gather(1, cperm)
+            s_o = s_o.gather(2, cperm[:, None, :].expand(nb, K, K))
+        else:
+            w = lam_all          # a merge above re-sorts its poles anyway
+        if q_shares is None:
+            return w, torch.cat([q1 @ s_o[:, :K2, :], q2 @ s_o[:, K2:, :]],
+                                dim=1)
+        q = s_o.new_zeros((nb, K, KL))
+        shape = tuple(q_shares.shape)
+        for src, part in pm.rank_shares(q_shares, grid, [shape] * grid.size):
+            a, b = pm.share(K2, grid.size, src)
+            q[:, :K2] += part[:, 0] @ s_o[:, a:b]
+            q[:, K2:] += part[:, 1] @ s_o[:, K2 + a:K2 + b]
+        return w, q
 
 
 def _tree_shape(n: int, leaf_target: int = 64):
@@ -566,24 +573,26 @@ def tridiag_dc(d: torch.Tensor, e: torch.Tensor,
         e = torch.cat([e, e.new_zeros(N - n + 1)])[:N - 1]
     e_full = torch.cat([e, e.new_zeros(1)])            # (N,)
 
-    # the boundary-diagonal adjustments of every merge of every level:
-    # subtract |e_mid| from both middle entries
-    d_adj = d.clone()
-    for lvl in range(1, levels + 1):
-        half = base << (lvl - 1)
-        mids = torch.arange(N // (2 * half), device=dev) * (2 * half) + half
-        rho_l = e_full[mids - 1].abs()
-        d_adj[mids - 1] -= rho_l
-        d_adj[mids] -= rho_l
+    with events.span("dc:leaves"):
+        # the boundary-diagonal adjustments of every merge of every level:
+        # subtract |e_mid| from both middle entries
+        d_adj = d.clone()
+        for lvl in range(1, levels + 1):
+            half = base << (lvl - 1)
+            mids = torch.arange(N // (2 * half), device=dev) * (2 * half) \
+                + half
+            rho_l = e_full[mids - 1].abs()
+            d_adj[mids - 1] -= rho_l
+            d_adj[mids] -= rho_l
 
-    # leaves: one batched dense eigh of the (nb, base, base) blocks
-    nb = N // base
-    t = torch.diag_embed(d_adj.reshape(nb, base))
-    if base > 1:
-        eb = e_full.reshape(nb, base)[:, :base - 1]
-        t = t + torch.diag_embed(eb, 1) + torch.diag_embed(eb, -1)
-    w, q = torch.linalg.eigh(t)
-    del t
+        # leaves: one batched dense eigh of the (nb, base, base) blocks
+        nb = N // base
+        t = torch.diag_embed(d_adj.reshape(nb, base))
+        if base > 1:
+            eb = e_full.reshape(nb, base)[:, :base - 1]
+            t = t + torch.diag_embed(eb, 1) + torch.diag_embed(eb, -1)
+        w, q = torch.linalg.eigh(t)
+        del t
 
     # bottom-up merges, all of a level at once; on a grid the top levels
     # (at most 4 merges, lanes the ranks divide) lane-sharded, each

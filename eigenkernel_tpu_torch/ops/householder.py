@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.parallel import mesh as pm
 
 
@@ -116,32 +117,35 @@ def tridiagonalize(a, block: int = 64,
         bw = min(b, n - s)
         As = A[s:, s:]                     # trailing block, a view of A
         m = n - s
-        Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
-        Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
-        for j in range(bw):
-            c = s + j
-            # column j with the panel's pending updates, rows j..m-1
-            col = As[j:, j] - Vp[j:, :j] @ Wp[j, :j] - Wp[j:, :j] @ Vp[j, :j]
-            d[c] = col[0]
-            if c == n - 1:
-                break
-            head, tail, tau, beta = _householder(col[2:], col[1])
-            e[c] = beta
-            taus[c] = tau
-            r = j + 1                      # pivot row; v vanishes above it
-            v = torch.cat([head.reshape(1), tail])
-            Vr, Wr = Vp[r:, :j], Wp[r:, :j]
-            # w = tau (A v - V (W^T v) - W (V^T v)) - (tau/2)(w^T v) v
-            av = As[r:, r:] @ v - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
-            w = tau * av
-            w = w - (0.5 * tau * (w @ v)) * v
-            Vp[r:, j] = v
-            Wp[r:, j] = w
-        if bw < m:
-            vw = torch.cat([Vp[bw:], Wp[bw:]], dim=1)
-            wv = torch.cat([Wp[bw:], Vp[bw:]], dim=1)
-            As[bw:, bw:].addmm_(vw, wv.T, alpha=-1.0)
-        V[s:, s:s + bw] = Vp
+        with events.span("tridiagonalize:panel"):
+            Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
+            Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
+            for j in range(bw):
+                c = s + j
+                # column j with the panel's pending updates, rows j..m-1
+                col = As[j:, j] - Vp[j:, :j] @ Wp[j, :j] \
+                    - Wp[j:, :j] @ Vp[j, :j]
+                d[c] = col[0]
+                if c == n - 1:
+                    break
+                head, tail, tau, beta = _householder(col[2:], col[1])
+                e[c] = beta
+                taus[c] = tau
+                r = j + 1                  # pivot row; v vanishes above it
+                v = torch.cat([head.reshape(1), tail])
+                Vr, Wr = Vp[r:, :j], Wp[r:, :j]
+                # w = tau (A v - V (W^T v) - W (V^T v)) - (tau/2)(w^T v) v
+                av = As[r:, r:] @ v - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
+                w = tau * av
+                w = w - (0.5 * tau * (w @ v)) * v
+                Vp[r:, j] = v
+                Wp[r:, j] = w
+        with events.span("tridiagonalize:update"):
+            if bw < m:
+                vw = torch.cat([Vp[bw:], Wp[bw:]], dim=1)
+                wv = torch.cat([Wp[bw:], Vp[bw:]], dim=1)
+                As[bw:, bw:].addmm_(vw, wv.T, alpha=-1.0)
+            V[s:, s:s + bw] = Vp
     return TridiagResult(d=d, e=e, V=V, taus=taus)
 
 
@@ -173,53 +177,56 @@ def _tridiagonalize_grid(a: pm.DistMatrix, block: int,
     for s in range(0, n, b):
         bw = min(b, n - s)
         m = n - s
-        # the panel's columns, rows s..n-1, whole on every rank
-        lr, lc = local(s)
-        lc1 = min(max(s + bw - c0, 0), nc)
-        panel = torch.zeros((m, bw), dtype=dtype, device=dev)
-        if lr < nr and lc < lc1:
-            panel[r0 + lr - s:r0 + nr - s, c0 + lc - s:c0 + lc1 - s] = \
-                A[lr:, lc:lc1]
-        pm.all_reduce(panel, grid)
-        Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
-        Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
-        for j in range(bw):
-            c = s + j
-            col = panel[j:, j] - Vp[j:, :j] @ Wp[j, :j] \
-                - Wp[j:, :j] @ Vp[j, :j]
-            d[c] = col[0]
-            if c == n - 1:
-                break
-            head, tail, tau, beta = _householder(col[2:], col[1])
-            e[c] = beta
-            taus[c] = tau
-            r = j + 1
-            g = s + r                      # global index of v[0]
-            v = torch.cat([head.reshape(1), tail])
-            # A22 v: this block's rows and columns >= g in this rank's rows
-            # of a zeroed column, summed over the grid (the process-row
-            # reduction and the process-column gather in one call)
-            av = torch.zeros(n - g, dtype=dtype, device=dev)
-            lr, lc = local(g)
-            if lr < nr and lc < nc:
-                av[r0 + lr - g:r0 + nr - g] = \
-                    A[lr:, lc:] @ v[c0 + lc - g:c0 + nc - g]
-            pm.all_reduce(av, grid)
-            Vr, Wr = Vp[r:, :j], Wp[r:, :j]
-            av = av - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
-            w = tau * av
-            w = w - (0.5 * tau * (w @ v)) * v
-            Vp[r:, j] = v
-            Wp[r:, j] = w
-        lr, lc = local(s + bw)
-        if bw < m and lr < nr and lc < nc:
-            vw = torch.cat([Vp, Wp], dim=1)
-            wv = torch.cat([Wp, Vp], dim=1)
-            A[lr:, lc:].addmm_(vw[r0 + lr - s:r0 + nr - s],
-                               wv[c0 + lc - s:c0 + nc - s].T, alpha=-1.0)
-        if s // gb in mine:
-            gs = groups[s // gb][0]
-            mine[s // gb][s - gs:, s - gs:s - gs + bw] = Vp
+        with events.span("tridiagonalize:panel"):
+            # the panel's columns, rows s..n-1, whole on every rank
+            lr, lc = local(s)
+            lc1 = min(max(s + bw - c0, 0), nc)
+            panel = torch.zeros((m, bw), dtype=dtype, device=dev)
+            if lr < nr and lc < lc1:
+                panel[r0 + lr - s:r0 + nr - s, c0 + lc - s:c0 + lc1 - s] = \
+                    A[lr:, lc:lc1]
+            pm.all_reduce(panel, grid)
+            Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
+            Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
+            for j in range(bw):
+                c = s + j
+                col = panel[j:, j] - Vp[j:, :j] @ Wp[j, :j] \
+                    - Wp[j:, :j] @ Vp[j, :j]
+                d[c] = col[0]
+                if c == n - 1:
+                    break
+                head, tail, tau, beta = _householder(col[2:], col[1])
+                e[c] = beta
+                taus[c] = tau
+                r = j + 1
+                g = s + r                  # global index of v[0]
+                v = torch.cat([head.reshape(1), tail])
+                # A22 v: this block's rows and columns >= g in this rank's
+                # rows of a zeroed column, summed over the grid (the
+                # process-row reduction and the process-column gather in
+                # one call)
+                av = torch.zeros(n - g, dtype=dtype, device=dev)
+                lr, lc = local(g)
+                if lr < nr and lc < nc:
+                    av[r0 + lr - g:r0 + nr - g] = \
+                        A[lr:, lc:] @ v[c0 + lc - g:c0 + nc - g]
+                pm.all_reduce(av, grid)
+                Vr, Wr = Vp[r:, :j], Wp[r:, :j]
+                av = av - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
+                w = tau * av
+                w = w - (0.5 * tau * (w @ v)) * v
+                Vp[r:, j] = v
+                Wp[r:, j] = w
+        with events.span("tridiagonalize:update"):
+            lr, lc = local(s + bw)
+            if bw < m and lr < nr and lc < nc:
+                vw = torch.cat([Vp, Wp], dim=1)
+                wv = torch.cat([Wp, Vp], dim=1)
+                A[lr:, lc:].addmm_(vw[r0 + lr - s:r0 + nr - s],
+                                   wv[c0 + lc - s:c0 + nc - s].T, alpha=-1.0)
+            if s // gb in mine:
+                gs = groups[s // gb][0]
+                mine[s // gb][s - gs:, s - gs:s - gs + bw] = Vp
     return TridiagResult(d=d, e=e, V=GridReflectors(groups, mine), taus=taus)
 
 
@@ -263,9 +270,10 @@ def apply_q(tri: TridiagResult, z: torch.Tensor, block: int = 64,
     """``Q z`` with Q from :func:`tridiagonalize` (pdormtr analog).  On a
     grid ``z`` is a rank's own columns, whole: each WY group is broadcast
     from the rank that holds it and applied to them, last to first."""
-    if mesh is None:
-        return apply_wy(tri.V, tri.taus, z, block)
-    return apply_wy_grid(tri.V, tri.taus, z, mesh)
+    with events.span("bt:band"):
+        if mesh is None:
+            return apply_wy(tri.V, tri.taus, z, block)
+        return apply_wy_grid(tri.V, tri.taus, z, mesh)
 
 
 def apply_wy_grid(refl: GridReflectors, taus: torch.Tensor, z: torch.Tensor,

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.ops import dc, sturm, tridiag_solve
 from eigenkernel_tpu_torch.ops.blocked import blocked_cholesky
 from eigenkernel_tpu_torch.ops.householder import tridiag_matrix
@@ -133,7 +134,8 @@ def pivot_floor(d: torch.Tensor, e: torch.Tensor) -> float:
     kernel (1e-30) the multiplier after such a pivot is 1e30, and its
     rounding leaves residuals of 1e-3 on glued Wilkinson matrices.  A zero
     T is floored as if its scale were 1."""
-    scale = float(torch.cat([d.abs(), e.abs()]).max())
+    with events.span("wait:pivot_floor"):
+        scale = float(torch.cat([d.abs(), e.abs()]).max())
     return torch.finfo(d.dtype).eps * (scale if scale > 0 else 1.0)
 
 

@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.ops.bulge import (ChaseResult, _wy_embed,
                                              group_stores)
@@ -179,11 +180,15 @@ def grid_stream_bytes(n: int, itemsize: int, parts: int) -> int:
 def stream_phases(res: ChaseResult, pl: Plan):
     """Yield ``(P, u0)`` per phase: the (tc, nG, S2, S2) transforms of
     composite steps [u0, u0 + tc)."""
-    hvu, htu = _composite_views(*group_stores(res, pl.n, pl.b, pl.g), pl.m,
-                                pl.nph * pl.tc)
+    with events.span("bt:stream"):
+        hvu, htu = _composite_views(*group_stores(res, pl.n, pl.b, pl.g),
+                                    pl.m, pl.nph * pl.tc)
     for i in range(pl.nph):
         sl = slice(i * pl.tc, (i + 1) * pl.tc)
-        yield _q_stream(hvu[sl], htu[sl], pl.g, pl.b, pl.m), i * pl.tc
+        with events.span("bt:stream"):
+            P = _q_stream(hvu[sl], htu[sl], pl.g, pl.b, pl.m)
+        yield P, i * pl.tc
+        del P   # one phase alive at a time, once the consumer drops its P
 
 
 def _live_lanes(pl: Plan, u: int):
@@ -270,7 +275,8 @@ def _wavefront(res: ChaseResult, z: torch.Tensor, group: int, apply,
     pl = plan(res, z, group, stream_bytes)
     zp = frame(z, pl)
     for P, u0 in stream_phases(res, pl):
-        apply(P, zp, pl, u0)
+        with events.span("bt:apply"):
+            apply(P, zp, pl, u0)
         del P
     return zp[pl.top:pl.top + n].clone()
 

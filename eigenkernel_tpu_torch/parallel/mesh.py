@@ -38,22 +38,24 @@ an ``all_reduce`` of a zeroed buffer in which each rank fills its own slot
 large operand takes the shares one at a time, each rank's broadcast in
 turn (:func:`rank_shares`), so no rank ever holds more than its own share
 and one other.  Nothing here moves a tensor to the host for a backend.
-Each grid counts its collectives and the host seconds spent in them
-(:class:`CollectiveStats`; under NCCL a call returns once it is queued,
-so its seconds are the queueing).
+Each grid counts its collectives and their bytes
+(:class:`CollectiveStats`), and each collective is a span ``grid:<op>``
+of the active event log (``obs/events.py``), which ``--profile`` joins
+with the device's work (NCCL's kernels included).
 """
 
 from __future__ import annotations
 
 import math
 import sys
-import time
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from eigenkernel_tpu_torch.obs import events
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN, "prod": dist.ReduceOp.PRODUCT}
@@ -73,10 +75,9 @@ def layout_grid(n_procs: int) -> tuple[int, int]:
 
 @dataclass
 class CollectiveStats:
-    """Collectives a grid made and the host seconds spent in them."""
+    """Collectives a grid made and the bytes they moved."""
 
     calls: int = 0
-    seconds: float = 0.0
     bytes: int = 0
 
 
@@ -168,9 +169,8 @@ def all_reduce(x: torch.Tensor, grid: ProcessGrid, op: str = "sum",
                over: str = "world") -> torch.Tensor:
     """In-place ``all_reduce`` of ``x`` over the grid ("world"), this
     rank's process row ("row") or process column ("col"); returns x."""
-    t0 = time.perf_counter()
-    dist.all_reduce(x, op=_OPS[op], group=_group(grid, over))
-    grid.stats.seconds += time.perf_counter() - t0
+    with events.span("grid:all_reduce"):
+        dist.all_reduce(x, op=_OPS[op], group=_group(grid, over))
     grid.stats.calls += 1
     grid.stats.bytes += x.numel() * x.element_size()
     return x
@@ -181,9 +181,8 @@ def broadcast(x: torch.Tensor, grid: ProcessGrid, src: int,
     """In-place ``broadcast`` of ``x`` from grid rank ``src`` to the grid
     ("world"), or to ``src``'s and this rank's process row ("row") or
     column ("col"); returns x."""
-    t0 = time.perf_counter()
-    dist.broadcast(x, src, group=_group(grid, over))
-    grid.stats.seconds += time.perf_counter() - t0
+    with events.span("grid:broadcast"):
+        dist.broadcast(x, src, group=_group(grid, over))
     grid.stats.calls += 1
     grid.stats.bytes += x.numel() * x.element_size()
     return x
@@ -210,9 +209,8 @@ def swap(part: torch.Tensor, grid: ProcessGrid, peer: int) -> torch.Tensor:
     buf = torch.zeros((2,) + tuple(part.shape), dtype=part.dtype,
                       device=part.device)
     buf[int(grid.rank != lo)] = part
-    t0 = time.perf_counter()
-    dist.all_reduce(buf, group=group)
-    grid.stats.seconds += time.perf_counter() - t0
+    with events.span("grid:swap"):
+        dist.all_reduce(buf, group=group)
     grid.stats.calls += 1
     grid.stats.bytes += buf.numel() * buf.element_size()
     return buf[int(peer != lo)]

@@ -38,6 +38,7 @@ import torch
 from eigenkernel_tpu_torch.core.config import (DEFAULT_BLOCK_SIZE,
                                               set_matmul_precision_highest)
 from eigenkernel_tpu_torch.core.types import EigenPairs
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.obs.events import EventLog
 from eigenkernel_tpu_torch.obs.mem import memstats
 from eigenkernel_tpu_torch.ops.refine import refine_eigenpairs, refine_on_grid
@@ -141,14 +142,15 @@ def solve(a: Any, b: Any = None, solver: str = "general_elpa2",
         # refine against the caller's matrices in float64, not the
         # float32 pipeline copies, which are freed first
         t0 = time.time()
-        v64 = vectors.to(torch.float64)
-        del a_dev, w, z, values, vectors
-        a64 = torch.as_tensor(a).to(device=device, dtype=torch.float64)
-        b64 = None if b is None else \
-            torch.as_tensor(b).to(device=device, dtype=torch.float64)
-        memstats("solve:pre_refine")
-        values, vectors = refine_eigenpairs(a64, v64, b64)
-        ctx.tick("solve:refine", t0)
+        with events.stage("solve:refine", log):
+            v64 = vectors.to(torch.float64)
+            del a_dev, w, z, values, vectors
+            a64 = torch.as_tensor(a).to(device=device, dtype=torch.float64)
+            b64 = None if b is None else \
+                torch.as_tensor(b).to(device=device, dtype=torch.float64)
+            memstats("solve:pre_refine")
+            values, vectors = refine_eigenpairs(a64, v64, b64)
+            ctx.tick("solve:refine", t0)
     return EigenPairs(values=values, vectors=vectors,
                       meta={"solver": solver, "core": core, "panel": panel,
                             "device": str(device)})
@@ -197,13 +199,14 @@ def _solve_grid(a, b, spec, core: str, n: int, n_vec: int, block_size: int,
     if mixed:
         # the float32 copies go first, as on one device
         t0 = time.time()
-        out = out._replace(vectors=out.vectors.to(torch.float64))
-        a64 = _on_grid(a, grid, torch.float64, n)
-        b64 = None if b is None else _on_grid(b, grid, torch.float64, n)
-        memstats("solve:pre_refine")
-        out = refine_on_grid(a64, out, b64)
-        del a64, b64
-        ctx.tick("solve:refine", t0)
+        with events.stage("solve:refine", log):
+            out = out._replace(vectors=out.vectors.to(torch.float64))
+            a64 = _on_grid(a, grid, torch.float64, n)
+            b64 = None if b is None else _on_grid(b, grid, torch.float64, n)
+            memstats("solve:pre_refine")
+            out = refine_on_grid(a64, out, b64)
+            del a64, b64
+            ctx.tick("solve:refine", t0)
     return EigenPairs(values=out.values, vectors=out.vectors[:n],
                       meta={"solver": spec.name, "core": core,
                             "panel": panel, "device": str(grid.device),

@@ -26,8 +26,10 @@ reference's hierarchical names (``solve:reduce_elpa``,
 ``sep:full_to_band``, ``sep:band_to_tridiag``, ``sep:tridiag_eigh``,
 ``sep:back_transform``, ``sep:eigh``, ``sep:jacobi``, ``sep:qdwh_dc``,
 ``recovery_generalized``), with a
-``torch.cuda.synchronize()`` before each clock stops, and its model
-GFLOP/s as ``!<stage>_Gflops``.
+``torch.cuda.synchronize()`` before each clock stops (the span
+``wait:drain``), and its model GFLOP/s as ``!<stage>_Gflops``.  For the
+length of a stage the context's log is the active log of
+:func:`~eigenkernel_tpu_torch.obs.events.span` (``obs/events.py``).
 
 On a process grid (``SolverContext.mesh``) the one-stage, two-stage,
 ``jacobi`` and ``qdwh`` cores run sharded (the matrix a
@@ -51,6 +53,7 @@ import torch
 
 from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
 from eigenkernel_tpu_torch.obs import flops as fl
+from eigenkernel_tpu_torch.obs import events
 from eigenkernel_tpu_torch.obs.events import EventLog, barrier
 from eigenkernel_tpu_torch.ops import householder, jacobi, qdwh
 from eigenkernel_tpu_torch.ops import reduction as red
@@ -71,9 +74,10 @@ class SolverContext:
              flops: Optional[float] = None) -> None:
         if self.log is None:
             return
-        barrier(self.device)
-        if self.mesh is not None:
-            pm.barrier(self.mesh)
+        with events.span("wait:drain"):
+            barrier(self.device)
+            if self.mesh is not None:
+                pm.barrier(self.mesh)
         dt = time.time() - t0
         self.log.add_event(name, dt)
         if flops and dt > 0:
@@ -83,8 +87,7 @@ class SolverContext:
 def _run(ctx: SolverContext, name: str, fn: Callable, *args,
          flops: Optional[float] = None, **kwargs) -> Any:
     t0 = time.time()
-    # the stage's span in a torch.profiler trace (--profile)
-    with torch.profiler.record_function(name):
+    with events.stage(name, ctx.log):
         out = fn(*args, **kwargs)
         ctx.tick(name, t0, flops=flops)
     return out
@@ -106,9 +109,11 @@ def tridiag_eigh(d: torch.Tensor, e: torch.Tensor, n_vec: int,
     n_m = d.shape[0]
     if mesh is None or n_logical is None or n_logical >= n_m:
         return td.tridiag_eigh(d, e, n_vec, mesh)
-    if float(e[n_logical - 1]) != 0.0:
+    with events.span("wait:padding_split"):
+        split = float(e[n_logical - 1])
+    if split != 0.0:
         raise RuntimeError(f"tridiag_eigh: T does not split at the padding "
-                           f"(e[{n_logical - 1}] = {float(e[n_logical - 1])})")
+                           f"(e[{n_logical - 1}] = {split})")
     out = td.tridiag_eigh(d[:n_logical], e[:n_logical - 1], n_vec, mesh)
     z = out.vectors.new_zeros((n_m, out.vectors.shape[1]))
     z[:n_logical] = out.vectors

@@ -418,7 +418,11 @@ def test_cli_eigensx_matches_jax_cli(tmp_path, monkeypatch):
     assert log_p["setting"]["solver"] == "eigensx"
     names_j = [e["name"] for e in log_j["events"]]
     names_p = [e["name"] for e in log_p["events"]]
-    assert names_p == names_j
+    # the port's log.json adds its spans' totals (obs/events.py)
+    assert [x for x in names_p if x in names_j] == names_j
+    assert [x for x in names_p if x not in names_j] == [
+        "to_band:panel", "to_band:update", "wait:drain", "wait:pivot_floor",
+        "wait:cholesky_info", "bt:stream", "bt:apply", "bt:band"]
     for stage in ("sep:full_to_band", "sep:band_to_tridiag",
                   "sep:tridiag_eigh", "sep:back_transform"):
         assert stage in names_p and f"!{stage}_Gflops" in names_p
