@@ -7,6 +7,7 @@ CUDA card.
                                      # NCCL runs on every card only (with
                                      # jacobi and phase 16's dry run on
                                      # two cards or more)
+    python3 chip_smoke.py --d3       # phases 1, 2 and 17 only
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -181,6 +182,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``python -m eigenkernel_tpu_torch.tools.sweep`` over every registry
     name at n = 1024, float64, on this card, each against phase 4's bars.
 
+17. The panel QR of ``to_band`` (D3, ``csrc/panel_qr.cu``) against its
+    plain version (``band.panel_qr_plain``: ``_qr_panel`` and
+    ``wy_t_factor``) on random (m, 64) panels at the main path's heights
+    (m = 22,436, 16,320 and 4,032 of n = 22,500, the ragged 36 x 64 of
+    its last panel, and m = 4,032 with an exactly zero column), float64
+    and float32: V2, taus and T entrywise, each against its column's
+    scale, and ||P - QR|| / ||P|| and ||I - Q^T Q||_F with
+    Q = I - V2 T V2^T, all within b sqrt(m) eps (the sums of m rows run in
+    another order across the CTAs, so not bit for bit); D3 timed beside
+    the plain version, ``torch.geqrf`` and ``wy_t_factor`` (its library
+    call), its bytes (the panel once in, V2 once out) and its chain (the
+    same launch on a panel of one row a CTA: b + 1 grid barriers and their
+    sums); then ``to_band`` at n = 4096 on the card against the same
+    reduction with the plain panel (within the panels' bars added up),
+    with one D3 launch a panel.
+
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
 path do not count.  The second-to-last line is a JSON object with one
@@ -322,22 +339,24 @@ def capture(module, name, limit=None, keywords=False):
 
 
 def reset_launches():
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, jacobi,
-                                           sturm, tridiag_solve, wf_bt)
+    from eigenkernel_tpu_torch.ops import (backtransform, band, chase, dc,
+                                           jacobi, sturm, tridiag_solve,
+                                           wf_bt)
 
     for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform, dc,
-                jacobi):
+                jacobi, band):
         mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from eigenkernel_tpu_torch.ops import (backtransform, chase, dc, jacobi,
-                                           sturm, tridiag_solve, wf_bt)
+    from eigenkernel_tpu_torch.ops import (backtransform, band, chase, dc,
+                                           jacobi, sturm, tridiag_solve,
+                                           wf_bt)
 
     return {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES,
             "chase": chase.LAUNCHES, "wf_bt": wf_bt.LAUNCHES,
             "chase_bt": backtransform.LAUNCHES, "deflate": dc.LAUNCHES,
-            "pair_eigh": jacobi.LAUNCHES}
+            "pair_eigh": jacobi.LAUNCHES, "panel_qr": band.LAUNCHES}
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -1055,6 +1074,7 @@ def phase_eigensx(dev, tmp, n, seed, bt):
     """Phases 8 and 9: ``-s eigensx`` on the full spectrum, float64; then
     the path's back-transform kernel against its plain version on the
     operands the path gave it."""
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
     from eigenkernel_tpu_torch.ops import wf_bt
     from eigenkernel_tpu_torch.solvers import twostage
 
@@ -1076,6 +1096,9 @@ def phase_eigensx(dev, tmp, n, seed, bt):
     check(launches["chase"] > 0 and launches["sturm"] > 0
           and launches["solve"] > 0, "B1, B2 and B3 launched")
     check(launches[key] > 0, f"{key} launched")
+    panels = len(range(0, n - DEFAULT_BLOCK_SIZE, DEFAULT_BLOCK_SIZE))
+    check(launches["panel_qr"] == panels,
+          f"D3 launched once a panel ({launches['panel_qr']} == {panels})")
     check_run(work, out, ref, n, f"float64 eigensx {bt}", 1e-12, 1e-10,
               1e-10)
     check(len(calls) == 1, f"the path called {name} once")
@@ -2438,13 +2461,166 @@ def mesh_every_card(jobs, out_dir, tmp, ref, norm2):
     return f"{shape[0]} x {shape[1]}"
 
 
+N_BAND = 4096                  # to_band on the card, D3 against plain
+# (m, zero column) of phase 17's panels, b = 64: the heights of n =
+# 22,500's first, 100th and 290th panels, its ragged last panel, a zero
+# column
+D3_PANELS = ((22436, None), (16320, None), (4032, None), (36, None),
+             (4032, 5))
+
+
+def panel_bar(m: int, b: int, dtype) -> float:
+    """Phase 17's bar: b sqrt(m) eps.  Two orders of the same Householder
+    sums differ by about sqrt(m) eps a column on a well-conditioned panel,
+    carried through b columns."""
+    import torch
+
+    return b * max(m, 1) ** 0.5 * torch.finfo(dtype).eps
+
+
+def panel_errors(p, got, ref) -> dict:
+    """D3's (V2, taus, T) against the plain version's, each entry against
+    its column's largest, and both factorizations' ||P - QR|| / ||P|| and
+    ||I - Q^T Q||_F (Q = I - V2 T V2^T, evaluated in float64)."""
+    import torch
+
+    def rel(a, b):
+        scale = b.abs().amax(0).clamp_min(torch.finfo(b.dtype).tiny)
+        return float(((a - b).abs().amax(0) / scale).max())
+
+    def quality(v, t):
+        p64, v, t = p.double(), v.double(), t.double()
+        r = torch.triu(p64 - v @ (t.T @ (v.T @ p64)))         # R = Q^T P
+        qr = r - v @ (t @ (v.T @ r))
+        g = v.T @ v
+        s = t + t.T - t.T @ g @ t                  # Q^T Q = I - V S V^T
+        orth = float(torch.trace(s @ g @ s @ g).clamp_min(0)) ** 0.5
+        return float((p64 - qr).norm() / p64.norm()), orth
+
+    res, orth = quality(got[0], got[2])
+    res_p, orth_p = quality(ref[0], ref[2])
+    return {"v_err": rel(got[0], ref[0]),
+            "tau_err": float((got[1] - ref[1]).abs().max()),
+            "t_err": rel(got[2], ref[2]), "residual": res, "orth": orth,
+            "plain_residual": res_p, "plain_orth": orth_p}
+
+
+def phase_panel_qr(dev) -> dict:
+    """Phase 17: D3 against its plain version on the main path's panels,
+    timed; then ``to_band`` at n = 4096 with D3 against the plain panel."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import band
+    from eigenkernel_tpu_torch.ops.householder import wy_t_factor
+
+    b = DEFAULT_BLOCK_SIZE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(17)
+    out = {"panels": []}
+
+    def geqrf_wy(p):
+        a, tau = torch.geqrf(p)
+        v = torch.tril(a, -1)
+        v.diagonal().fill_(1.0)
+        return v, tau, wy_t_factor(v, tau)
+
+    for dtype in (torch.float64, torch.float32):
+        for m, zero in D3_PANELS:
+            pn = rng.standard_normal((m, b))
+            if zero is not None:
+                pn[:, zero] = 0.0
+            p = torch.tensor(pn, dtype=dtype, device=dev)
+            got = band.panel_qr(p)
+            torch.cuda.synchronize()
+            ref = band.panel_qr_plain(p)
+            err = panel_errors(p, got, ref)
+            bar = panel_bar(m, b, dtype)
+            tag = (f"D3 m={m} b={b} {str(dtype)[6:]}"
+                   + ("" if zero is None else f" zero column {zero}"))
+            grid, rows = band.panel_plan(m, sms)
+            smem = band.panel_smem_bytes(rows, b, p.element_size())
+            print(f"  {tag}: grid {grid} x {rows} rows, {smem} B shared; "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f"; bar {bar:.3e}")
+            check(max(err["v_err"], err["tau_err"], err["t_err"],
+                      err["residual"], err["orth"]) <= bar,
+                  f"{tag} within b sqrt(m) eps of the plain panel")
+            if zero is not None:
+                check(float(got[1][zero]) == 0.0
+                      and float(got[2][zero, zero]) == 1.0
+                      and not bool(got[0][:, zero].any()),
+                      f"{tag}: the zero column is an identity reflector")
+            entry = dict(err, m=m, b=b, dtype=str(dtype)[6:], zero=zero,
+                         grid=grid, rows=rows, bar=bar)
+            if zero is None and m > b:
+                entry["ms"] = time_ms(lambda: band.panel_qr(p), 20)
+                entry["plain_ms"] = time_ms(
+                    lambda: band.panel_qr_plain(p), 1, batches=3)
+                entry["library_ms"] = time_ms(lambda: geqrf_wy(p), 3)
+                nbytes = (2 * m * b + b + b * b) * p.element_size()
+                entry["bound_ms"] = nbytes / 3.35e12 * 1e3
+                # the chain: the same grid on a panel of one row a CTA
+                tiny = torch.tensor(rng.standard_normal((grid, b)),
+                                    dtype=dtype, device=dev)
+                entry["chain_ms"] = time_ms(
+                    lambda: band._launch(tiny, grid, 1), 20)
+                print(f"    D3 {entry['ms']:.4f} ms, plain "
+                      f"{entry['plain_ms']:.3f} ms, geqrf + wy_t_factor "
+                      f"{entry['library_ms']:.3f} ms, bound "
+                      f"{entry['bound_ms']:.4f} ms (bytes), chain "
+                      f"{entry['chain_ms']:.4f} ms ({b + 1} barriers of "
+                      f"{grid} CTAs)")
+            out["panels"].append(entry)
+            del p, got, ref
+    # to_band at n = 4096: one D3 launch a panel, the band of the plain
+    # panel's reduction within the same kind of bar
+    panels = len(range(0, N_BAND - b, b))
+    for dtype in (torch.float64, torch.float32):
+        a = rng.standard_normal((N_BAND, N_BAND))
+        a = torch.tensor((a + a.T) / 2, dtype=dtype, device=dev)
+        band.LAUNCHES = 0
+        res = band.to_band(a, b)
+        torch.cuda.synchronize()
+        launches = band.LAUNCHES
+        kernel = band.panel_qr
+        band.panel_qr = band.panel_qr_plain
+        try:
+            ref = band.to_band(a, b)
+            plain_ms = time_ms(lambda: band.to_band(a, b), 1, batches=1)
+        finally:
+            band.panel_qr = kernel
+        ms = time_ms(lambda: band.to_band(a, b), 1, batches=3)
+        scale = float(a.abs().max())
+        err = float((res.band - ref.band).abs().max()) / scale
+        err_v = float((res.V - ref.V).abs().max())
+        # each of the n / b panels within the panel's bar, the errors
+        # carried from one panel into the next and added up
+        bar = panels * panel_bar(N_BAND, b, dtype)
+        tag = f"to_band n={N_BAND} bw={b} {str(dtype)[6:]}"
+        print(f"  {tag}: {launches} D3 launches for {panels} panels; band "
+              f"{err:.3e} of max|A|, V {err_v:.3e}, bar {bar:.3e}; "
+              f"{ms:.1f} ms against the plain panel's {plain_ms:.1f} ms")
+        check(launches == panels, f"{tag}: D3 launched once a panel")
+        check(err <= bar and err_v <= bar,
+              f"{tag}: the band and V of the plain panel's reduction")
+        out[f"to_band_{str(dtype)[6:]}"] = {
+            "launches": launches, "panels": panels, "band_err": err,
+            "v_err": err_v, "bar": bar, "ms": ms, "plain_ms": plain_ms}
+        del a, res, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
 
     cards_only = argv == ["--cards"]
-    if argv and not cards_only:
-        print(f"chip_smoke: unknown arguments {argv} (none, or --cards)",
-              file=sys.stderr)
+    d3_only = argv == ["--d3"]
+    if argv and not (cards_only or d3_only):
+        print(f"chip_smoke: unknown arguments {argv} (none, --cards or "
+              f"--d3)", file=sys.stderr)
         return 2
 
     # phase 1: card
@@ -2472,6 +2648,15 @@ def main(argv) -> int:
     for line in build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip())
+    if d3_only:
+        t0 = time.time()
+        d3 = phase_panel_qr(dev)
+        print(f"panel QR (D3): {time.time() - t0:.1f} s")
+        print(json.dumps({"panel_qr": d3}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if cards_only:
         # the NCCL runs of phase 13 on every card, with the single-device
         # runs of phases 4 and 11 they are held against
@@ -2552,6 +2737,9 @@ def main(argv) -> int:
         chunked = phase_chunked(dev, tmp, gen_pair)
         print(f"sweep ranges, dry run and solver sweep: "
               f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    d3 = phase_panel_qr(dev)
+    print(f"panel QR (D3): {time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
@@ -2705,6 +2893,25 @@ def main(argv) -> int:
                         tag: [r["core_collectives"] / r["rounds"]
                               for r in mesh_x[tag]]
                         for tag in ("jacobi", "gen_jacobi")}})
+    # D3: the panel QR of to_band at the first panel's height of n =
+    # 22,500; not a TPU kernel (it replaces the JAX function's column
+    # lax.scan, _qr_panel)
+    d3_at = d3["panels"][0]
+    entries.append({"name": "panel_qr_kernel", "route": "cuda",
+                    "source": "eigenkernel_tpu_torch/csrc/panel_qr.cu",
+                    "replaces": "eigenkernel_tpu/ops/band.py::_qr_panel",
+                    "launches": launches_two.get("panel_qr", 0),
+                    "max_abs_err": d3_at["v_err"], "ms": d3_at["ms"],
+                    "plain_ms": d3_at["plain_ms"],
+                    "bound_ms": d3_at["bound_ms"], "bound_by": "bytes",
+                    "chain_ms": d3_at["chain_ms"],
+                    "library_ms": d3_at["library_ms"],
+                    "shape": f"m={d3_at['m']} b={d3_at['b']}",
+                    "dtype": "float64",
+                    "float32": next(e for e in d3["panels"]
+                                    if e["dtype"] == "float32"),
+                    "path_checks": d3["panels"][1:] + [
+                        d3["to_band_float64"], d3["to_band_float32"]]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

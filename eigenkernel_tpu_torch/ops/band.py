@@ -12,7 +12,11 @@ rows ``s+bw+j``; one symmetric WY update of the trailing block
 
 applies the two-sided transform ``diag(I, Q_s)^T A diag(I, Q_s)``.  The
 loop runs over a trailing block that shrinks panel by panel, and the last
-panel may have fewer than ``bw`` rows below the band, so any n works.  (The
+panel may have fewer than ``bw`` rows below the band, so any n works.
+Each panel's QR and its compact-WY T factor are :func:`panel_qr`: on a
+CUDA tensor one launch of kernel D3 (``csrc/panel_qr.cu``; ``LAUNCHES``
+counts them, one a panel), on a CPU tensor the plain :func:`_qr_panel`
+and ``wy_t_factor``, D3's model.  (The
 JAX package's bucketed recursion ``_to_band_rec``, ``EK_TOBAND_SPLIT`` and
 ``EK_QR_PANEL`` exist for XLA shapes and a TPU A/B; eager PyTorch needs
 none of them.)  The GEMMs are ``torch.matmul`` (cuBLAS on the card), as the
@@ -40,11 +44,21 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from eigenkernel_tpu_torch.obs import events
+from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.ops.householder import (GridReflectors,
                                                    _householder, apply_wy,
                                                    apply_wy_grid,
                                                    wy_groups, wy_t_factor)
 from eigenkernel_tpu_torch.parallel import mesh as pm
+
+
+LAUNCHES = 0        # launches of D3 by panel_qr (CPU tensors add none)
+
+SMEM_BYTES = 232448  # shared memory a block may use on sm_90
+ROWS_MIN = 128       # a D3 CTA takes at least this many rows where it can
+_GROUPS, _WARPS = 8, 16  # csrc/panel_qr.cu kGroups, kWarps
+
+_FN = {torch.float64: "ek_panel_qr_f64", torch.float32: "ek_panel_qr_f32"}
 
 
 class BandResult(NamedTuple):
@@ -78,6 +92,81 @@ def _qr_panel(p: torch.Tensor):
     return V, taus
 
 
+def panel_qr_plain(p: torch.Tensor):
+    """D3's model: ``(V2, taus, T)`` of the (m, b) panel ``p`` (not
+    modified) by :func:`_qr_panel` and ``wy_t_factor``, on any device."""
+    v2, tp = _qr_panel(p.clone())
+    return v2, tp, wy_t_factor(v2, tp)
+
+
+def panel_smem_bytes(rows: int, b: int, itemsize: int) -> int:
+    """Shared memory of a D3 CTA of ``rows`` rows at panel width ``b``: the
+    rows at a pitch of b + 1 (or T's back substitution, if larger), the
+    row groups' sums, a word a warp and w (``panel_qr.cu::smem_words``)."""
+    w = b + 1
+    return (max(rows * w, b * w + b) + _GROUPS * w + _WARPS + b) * itemsize
+
+
+def panel_plan(m: int, sms: int = 132):
+    """``(grid, rows)`` of D3 on a panel of m rows: ceil(m / ROWS_MIN)
+    CTAs, at most one an SM (fewer CTAs keep a small panel's barriers
+    cheap), ``rows`` = ceil(m / grid) rows each."""
+    grid = max(1, min(sms, -(-m // ROWS_MIN)))
+    return grid, -(-m // grid)
+
+
+def panel_qr(p: torch.Tensor):
+    """Householder QR of the (m, b) panel ``p`` (not modified) with its
+    compact-WY factor: ``(V2, taus, T)``, V2 (m, b) with column j's unit
+    pivot (0 for an identity reflector) at row j and zeros above, taus
+    (b,), T (b, b) upper with ``H_0 ... H_{b-1} = I - V2 T V2^T``.  A CUDA
+    tensor launches D3 once, a CPU tensor runs :func:`panel_qr_plain`."""
+    if p.dtype not in _FN:
+        raise TypeError(f"panel_qr: dtype {p.dtype} not float32/float64")
+    if p.dim() != 2 or p.shape[0] < 1 or p.shape[1] < 1:
+        raise ValueError(f"panel_qr: a non-empty (m, b) panel expected, "
+                         f"got {tuple(p.shape)}")
+    if p.device.type == "cpu":
+        return panel_qr_plain(p)
+    if p.device.type != "cuda":
+        raise ValueError(f"panel_qr: unsupported device {p.device}")
+    if p.stride(1) != 1:
+        p = p.contiguous()
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    return _launch(p, *panel_plan(p.shape[0], sms))
+
+
+def _launch(p: torch.Tensor, grid: int, rows: int):
+    """D3 on the CUDA panel ``p`` (unit column stride) with ``grid`` CTAs
+    of ``rows`` rows (``rows * grid >= m``); any grid that can be
+    co-resident (the card tests and ``chip_smoke.py`` take others than
+    :func:`panel_plan`'s)."""
+    global LAUNCHES
+    m, b = p.shape
+    smem = panel_smem_bytes(rows, b, p.element_size())
+    if smem > SMEM_BYTES:
+        raise build.KernelLaunchError(
+            f"panel_qr: a ({m}, {b}) panel needs {smem} bytes of shared "
+            f"memory a CTA ({grid} CTAs of {rows} rows), more than "
+            f"{SMEM_BYTES}")
+    v2 = torch.empty((m, b), dtype=p.dtype, device=p.device)
+    taus = torch.empty(b, dtype=p.dtype, device=p.device)
+    t = torch.empty((b, b), dtype=p.dtype, device=p.device)
+    part = torch.empty(2 * grid * (b + 1) + 2 * b, dtype=p.dtype,
+                       device=p.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=p.device)
+    name = _FN[p.dtype]
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    ld = p.stride(0) if m > 1 else b
+    status = getattr(build.library(), name)(
+        p.data_ptr(), ld, m, b, rows, grid, v2.data_ptr(),
+        taus.data_ptr(), t.data_ptr(), part.data_ptr(), bar.data_ptr(),
+        stream)
+    build.check(status, name)
+    LAUNCHES += 1
+    return v2, taus, t
+
+
 def to_band(a, bw: int, mesh: Optional[pm.ProcessGrid] = None) -> BandResult:
     """Reduce symmetric ``a`` to a band matrix ``Q^T A Q`` of semibandwidth
     ``bw``.  ``a`` is not modified.  With ``mesh``, ``a`` is a DistMatrix
@@ -94,8 +183,7 @@ def to_band(a, bw: int, mesh: Optional[pm.ProcessGrid] = None) -> BandResult:
     for s in range(0, max(n - bw, 0), bw):
         As = A[s:, s:]                     # trailing block, a view of A
         with events.span("to_band:panel"):
-            V2, tp = _qr_panel(As[bw:, :bw].clone())
-            t = wy_t_factor(V2, tp)
+            V2, tp, t = panel_qr(As[bw:, :bw])
         with events.span("to_band:update"):
             av = As[:, bw:] @ V2           # A V, V = [0; V2]
             u = av @ t
@@ -135,8 +223,7 @@ def _to_band_grid(a: pm.DistMatrix, bw: int,
     for s in range(0, max(n - bw, 0), bw):
         m = n - s
         with events.span("to_band:panel"):
-            V2, tp = _qr_panel(pm.gather_block(x, s + bw, n, s, s + bw))
-            t = wy_t_factor(V2, tp)
+            V2, tp, t = panel_qr(pm.gather_block(x, s + bw, n, s, s + bw))
         with events.span("to_band:update"):
             av = pm.times_tall(x, V2, (s, n), (s + bw, n))  # A V, (m, bw)
             u = av @ t

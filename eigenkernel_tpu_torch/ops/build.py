@@ -76,6 +76,11 @@ _SIGNATURES = {
         "ek_dc_deflate_f32": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                               _P, _P),
     },
+    "panel_qr.cu": {
+        "ek_panel_qr_f64": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+        "ek_panel_qr_f32": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+        "ek_panel_qr_smem": (_I, _I, _I),
+    },
     "pair_jacobi.cu": {
         "ek_pair_jacobi_f64": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
         "ek_pair_jacobi_f32": (_P, _I, _I, _I, _P, _P, _P, _P, _P),

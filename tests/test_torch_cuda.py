@@ -796,3 +796,122 @@ def test_two_ranks_on_one_card_two_stage(cuda_device, tmp_path):
                 1e-10 * np.abs(ref).max()
             resid, orth = res[f"{tag}/check"]
             assert resid <= 1e-12 and orth <= 1e-10
+
+
+def _panel_bar(m, b, dtype):
+    # D3 sums a column's m rows in another order than the plain version
+    # (across CTAs, then row groups): about sqrt(m) eps a column on these
+    # well-conditioned random panels, carried through b columns
+    return b * max(m, 1) ** 0.5 * torch.finfo(dtype).eps
+
+
+def _panel_quality(p, v, t):
+    """||P - QR|| / ||P|| and ||I - Q^T Q||_F of Q = I - V T V^T, in
+    float64 (``Q^T Q = I - V S V^T``, S = T + T^T - T^T V^T V T)."""
+    p, v, t = p.double(), v.double(), t.double()
+    r = torch.triu(p - v @ (t.T @ (v.T @ p)))
+    qr = r - v @ (t @ (v.T @ r))
+    g = v.T @ v
+    s = t + t.T - t.T @ g @ t
+    orth = float(torch.trace(s @ g @ s @ g).clamp_min(0)) ** 0.5
+    return float((p - qr).norm() / p.norm()), orth
+
+
+def _check_panel(p, got, want):
+    m, b = p.shape
+    bar = _panel_bar(m, b, p.dtype)
+    for a, ref in ((got[0], want[0]), (got[2], want[2])):
+        scale = ref.abs().amax(0).clamp_min(torch.finfo(ref.dtype).tiny)
+        assert float(((a - ref).abs().amax(0) / scale).max()) <= bar
+    assert float((got[1] - want[1]).abs().max()) <= bar
+    resid, orth = _panel_quality(p, got[0], got[2])
+    assert resid <= bar and orth <= bar
+    jmax = min(m, b)
+    assert torch.equal(torch.triu(got[0], 1), torch.zeros_like(got[0]))
+    assert bool((got[1][jmax:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m,b,zero_col", [
+    (22436, 64, None), (16320, 64, None), (4032, 64, None), (4032, 64, 5),
+    (36, 64, None), (1, 64, None), (300, 8, 0), (129, 16, None),
+    (1000, 128, None)])
+def test_panel_qr_kernel_matches_plain_on_card(cuda_device, dtype, m, b,
+                                               zero_col):
+    # D3 against _qr_panel + wy_t_factor on the card: the main path's
+    # heights at n = 22,500 and 4096, its ragged last panels, an exactly
+    # zero column (tau = 0, head 0, T's diagonal 1), other widths
+    rng = np.random.default_rng(m + b)
+    pn = rng.standard_normal((m, b))
+    if zero_col is not None:
+        pn[:, zero_col] = 0.0
+    p = torch.tensor(pn, dtype=dtype, device=cuda_device)
+    launches = band.LAUNCHES
+    got = band.panel_qr(p)
+    assert band.LAUNCHES == launches + 1
+    _check_panel(p, got, band.panel_qr_plain(p))
+    again = band.panel_qr(p)               # a fixed order of sums
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if zero_col is not None:
+        assert float(got[1][zero_col]) == 0.0
+        assert float(got[2][zero_col, zero_col]) == 1.0
+        assert not bool(got[0][:, zero_col].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [5, 7, 64, 132])
+def test_panel_qr_kernel_any_grid_on_card(cuda_device, grid):
+    # the cross-CTA sums and barriers at grids panel_plan does not pick,
+    # a strided panel (a view of a wider matrix, read in place)
+    rng = np.random.default_rng(grid)
+    a = torch.tensor(rng.standard_normal((2000, 200)), device=cuda_device)
+    p = a[37:, 100:164]
+    m = p.shape[0]
+    got = band._launch(p, grid, -(-m // grid))
+    _check_panel(p, got, band.panel_qr_plain(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,b,isz", [(170, 64, 8), (1, 64, 8),
+                                        (126, 64, 4), (300, 8, 8),
+                                        (217, 128, 8)])
+def test_panel_smem_matches_the_source_on_card(cuda_device, rows, b, isz):
+    assert build.library().ek_panel_qr_smem(rows, b, isz) == \
+        band.panel_smem_bytes(rows, b, isz)
+
+
+@pytest.mark.cuda
+def test_panel_qr_too_large_for_shared_memory_raises_on_card(cuda_device,
+                                                             monkeypatch):
+    # a panel whose rows do not fit 132 CTAs' shared memory raises; the
+    # plain version never stands in on a CUDA tensor
+    monkeypatch.setattr(band, "panel_qr_plain", None)
+    p = torch.zeros((132 * 500, 64), dtype=torch.float64,
+                    device=cuda_device)
+    with pytest.raises(build.KernelLaunchError):
+        band.panel_qr(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 4096])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_to_band_on_card_launches_d3_a_panel(cuda_device, monkeypatch, n,
+                                             dtype):
+    # one D3 launch a panel, and the band and V of the same reduction with
+    # the plain panel within the panels' bars added up (each panel starts
+    # from the last one's rounding)
+    bw = 64
+    rng = np.random.default_rng(n)
+    a = rng.standard_normal((n, n))
+    a = torch.tensor((a + a.T) / 2, dtype=dtype, device=cuda_device)
+    band.LAUNCHES = 0
+    got = band.to_band(a, bw)
+    assert band.LAUNCHES == len(range(0, n - bw, bw))
+    monkeypatch.setattr(band, "panel_qr", band.panel_qr_plain)
+    want = band.to_band(a, bw)
+    bar = len(range(0, n - bw, bw)) * _panel_bar(n, bw, dtype)
+    assert float((got.band - want.band).abs().max()) <= \
+        bar * float(a.abs().max())
+    assert float((got.V - want.V).abs().max()) <= bar
+    assert float((got.taus - want.taus).abs().max()) <= bar
