@@ -102,7 +102,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``tools/pair_jacobi_profile.py`` prints D2's cycles a set by phase
     (an instrumented build, held equal to D2 bit for bit), and the smoke
     prints the time D2's first design took on the same operands
-    (``FIRST_DESIGN_MS``).
+    (``FIRST_DESIGN_MS``).  Last, mixed precision at EigenKernel's size:
+    the VCNT22500-like pencil (n = 22,500, phase 11's generators, seeds 12
+    and 13) solved by ``general_elpa2`` in float32, whose vectors are
+    refined in float64 after 4 to ``refine.STEPS`` (the default, 8) Newton
+    steps, each one's eigenvalue error, B-metric residual and
+    orthogonality (``ekbench/reference.py``'s ``judge``, the benchmark's
+    compared numbers), the counter ``refine:clustered`` and the
+    allocator's peak printed; the default must meet the benchmark cell's
+    limits (1e-9).
 
 13. The process grid ("mesh"): four ranks on the one card as a 2 x 2
     grid, gloo on CUDA tensors (``multihost.init_distributed(...,
@@ -234,6 +242,7 @@ N_B5 = 2048                    # eigensx under EK_BACKTRANSFORM=pallas
 N_DC = 4096                    # full spectrum through divide and conquer
 N_GEN, K_GEN = 4096, 500       # generalized problems
 N_X, K_X = 4096, 500           # the extra cores and --dtype mixed
+N_REFINE = 22500               # phase 12's refinement at the benchmark's size
 MESH_TIMEOUT_S = 600           # a grid run's ranks must end within this
 PEAK_GIB = {}                  # each CLI run's peak device memory
 # D2's first design (one CTA a block: rows, then columns and V^T; kept in
@@ -1467,6 +1476,60 @@ def refine_by_steps(a64, v32, ref, steps=(4, 6, 8, 10, 12)):
     return rows
 
 
+def refine_at_size(dev, n=N_REFINE, first=4, bar=1e-9):
+    """Phase 12's last part: ``general_elpa2`` in float32 on the
+    VCNT22500-like pencil, its vectors refined in float64 after each step
+    count from ``first`` to the default, judged as the benchmark judges
+    (module doc)."""
+    import torch
+
+    from ekbench import reference
+    from eigenkernel_tpu_torch.core.types import SparseMatrix
+    from eigenkernel_tpu_torch.obs.events import EventLog, stage
+    from eigenkernel_tpu_torch.ops import refine
+    from eigenkernel_tpu_torch.solvers.api import solve
+
+    steps = range(first, refine.STEPS + 1)
+    mat = SparseMatrix(n, *elses_like(n, seed=12))
+    a = torch.tensor(mat.to_dense(), device=dev)
+    b = torch.tensor(overlap_like(mat, seed=13).to_dense(), device=dev)
+    del mat
+    ref = reference.eigenvalues(a, b)
+    t0 = time.time()
+    v32 = solve(a, b, solver="general_elpa2", dtype="float32").vectors
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    print(f"general_elpa2 float32 n={n}: {time.time() - t0:.1f} s")
+    rows = {}
+    for k in steps:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        log = EventLog(stream=False)
+        t0 = time.time()
+        with stage("smoke:refine", log):
+            w, v = refine.refine_eigenpairs(a, v32, b, steps=k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        sec = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30 \
+            if dev.type == "cuda" else 0.0
+        ev = {e["name"]: e["val"] for e in log.events()}
+        nums = reference.judge(a, b, ref, n, [w], [], torch.arange(0), w, v)
+        del w, v
+        rows[k] = {key: nums[key] for key in ("eig_err", "residual", "orth")}
+        rows[k].update(clustered=int(ev["refine:clustered"]), s=sec,
+                       peak_gib=peak)
+        print(f"  refine n={n} {k} steps: eig_err {nums['eig_err']:.3e}, "
+              f"residual {nums['residual']:.3e}, orth {nums['orth']:.3e}, "
+              f"refine:clustered {rows[k]['clustered']}, {sec:.2f} s, "
+              f"peak {peak:.2f} GiB", flush=True)
+    last = rows[max(steps)]
+    check(max(last["eig_err"], last["residual"], last["orth"]) <= bar,
+          f"{max(steps)} refinement steps at n={n} meet {bar:g}")
+    return rows
+
+
 def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
     """Phase 12: the jacobi and qdwh_dc cores and --dtype mixed at
     n = 4096; then D2 against its plain version on the path's pair
@@ -1549,9 +1612,10 @@ def phase_extra(dev, tmp, chains, gen_pair, dc_f64_s):
     out["mixed_vs_f64"] = {"mixed_s": mixed_s, "f64_s": f64_s,
                            "phase10_f64_s": dc_f64_s}
     # the refinement of that run's float32 vectors by step count (the
-    # port's default is 8)
+    # port's default is refine.STEPS)
     out["refine_by_steps"] = refine_by_steps(*refined, ref)
     del refined
+    out["refine_at_size"] = refine_at_size(dev)
     # where the float64 jacobi core's time goes: D2, the products, the
     # gathers and scatters of the rounds (the CLI run warmed it up)
     out["profile_jacobi"] = profile_call(
@@ -2883,6 +2947,7 @@ def main(argv) -> int:
                     + [{"launches_by_run": x_out["launches"],
                         "mixed_vs_f64": x_out["mixed_vs_f64"],
                         "refine_by_steps": x_out["refine_by_steps"],
+                        "refine_at_size": x_out["refine_at_size"],
                         "profile_jacobi": x_out["profile_jacobi"]}],
                     # phase 15: D2 on each rank's pairs of the 2 x 2 grid
                     "mesh_gen_launches_by_rank": {

@@ -26,6 +26,11 @@ is not an :class:`EventLog` -- ``span`` returns one shared
 device: a wait on the device is a span of its own, ``wait:<site>``,
 around the host read that blocks.  While a profiler runs, each span and
 each stage is also a ``torch.profiler.record_function`` range.
+
+Counters.  ``count(name, val)`` adds ``val`` to the event of its name in
+the active log (not streamed, no span); with no active log it does
+nothing.  A counter that needs a host read of a device value asks
+:func:`active` first, so that a solve without a log makes no such read.
 """
 
 from __future__ import annotations
@@ -162,6 +167,19 @@ def span(name: str):
     if log is None:
         return _OFF
     return _Span(log, name)
+
+
+def active() -> bool:
+    """Whether a log is active: spans and counters are being recorded."""
+    return _ACTIVE.get() is not None
+
+
+def count(name: str, val: float) -> None:
+    """Add ``val`` to the counter ``name`` of the active log (module
+    doc); nothing when no log is active."""
+    log = _ACTIVE.get()
+    if log is not None:
+        log._accumulate(name, val)
 
 
 def stage(name: str, log: Any):

@@ -183,21 +183,26 @@ def test_grid_extra_cores_hold_a_share_of_the_matrix(solves, shape):
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 40, 131])
-def test_banded_cluster_cleanup_equals_the_dense_one(k):
-    # the grid cleanup's angles and diagonal from a band of S are the
-    # dense passes' bit for bit (clusters of three, couplings ~1e-9)
+def test_banded_cluster_cleanup_equals_the_dense_one(k, monkeypatch):
+    # the grid cleanup's blocks of S, gathered from four ranks' columns,
+    # and so its eigenvalues and J, are the one device's bit for bit
+    # (clusters of three, couplings ~1e-9)
     rng = np.random.default_rng(k)
     q = rng.standard_normal((k, k)) * 1e-9
     s = torch.tensor(np.diag(np.repeat(np.arange(k), 3)[:k].astype(float))
                      + q + 0.9 * q.T)
-    s_dense, j_dense = refine._adjacent_jacobi(s, passes=refine.PASSES)
-    half = 2 * refine.PASSES + 2
-    rows = torch.arange(k)[:, None] + torch.arange(2 * half + 1) - half
-    ok = (rows >= 0) & (rows < k)
-    cols = torch.arange(k)[:, None].expand_as(rows)
-    band = torch.where(ok, s[rows.clamp(0, k - 1), cols], 0.0)
-    lam, jband = refine._adjacent_jacobi_band(band, half)
-    j = torch.zeros_like(s)
-    j[rows[ok], cols[ok]] = jband[ok]
-    assert torch.equal(lam, s_dense.diagonal())
-    assert torch.equal(j, j_dense)
+    lam_dense, jb_dense = refine._window_eigh(s)
+    win = refine._window(k)
+    pairs = refine._pairs_index(k, win, s.device)
+
+    def local(part, index, shape, grid):
+        buf = torch.zeros(shape, dtype=part.dtype)
+        buf[index] = part
+        return buf
+
+    monkeypatch.setattr(refine.pm, "gather_slots", local)
+    g = sum(refine._gather_pairs(s[:, share], share, pairs, k, None)
+            for share in torch.tensor(rng.permutation(k)).chunk(4))
+    lam, jb = refine._window_passes(g, k, win)
+    assert torch.equal(lam, lam_dense)
+    assert torch.equal(jb, jb_dense)

@@ -210,18 +210,21 @@ def test_cli_profile_writes_trace(tmp_path):
     assert {"wait:drain", "wait:pivot_floor", "bt:band"} <= set(spans["spans"])
 
 
-# the spans each of these solves adds to log.json, in their first order
+# the spans each of these solves adds to log.json, in their first order;
+# a mixed solve's refinement adds its spans and counters last
+REFINE = ["refine:start", "refine:step", "refine:steps",
+          "wait:refine_clustered", "refine:clustered", "refine:cleanup"]
 EXTRA_SPANS = {
     ("jacobi", "float64"): ["wait:drain"],
     ("general_jacobi", "float64"): ["wait:cholesky_info", "wait:drain"],
     ("qdwh_dc", "float64"): ["wait:drain"],
     ("general_qdwh_dc", "float64"): ["wait:cholesky_info", "wait:drain"],
     ("scalapack", "mixed"): ["tridiagonalize:panel", "tridiagonalize:update",
-                             "wait:drain", "dc:leaves", "bt:band"],
+                             "wait:drain", "dc:leaves", "bt:band"] + REFINE,
     ("general_elpa2", "mixed"): ["wait:cholesky_info", "wait:drain",
                                  "to_band:panel", "to_band:update",
                                  "dc:leaves", "bt:stream", "bt:apply",
-                                 "bt:band"],
+                                 "bt:band"] + REFINE,
 }
 
 
