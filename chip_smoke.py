@@ -8,6 +8,7 @@ CUDA card.
                                      # jacobi and phase 16's dry run on
                                      # two cards or more)
     python3 chip_smoke.py --d3       # phases 1, 2 and 17 only
+    python3 chip_smoke.py --d4       # phases 1, 2 and 18 only
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -205,6 +206,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     sums); then ``to_band`` at n = 4096 on the card against the same
     reduction with the plain panel (within the panels' bars added up),
     with one D3 launch a panel.
+18. The dlatrd panel of the one-stage ``tridiagonalize`` (D4,
+    ``csrc/panel_trd.cu``) against its plain version
+    (``householder.tridiag_panel_plain``) on the panels of a random
+    symmetric n = 22,500 matrix, float64 and float32: its first (m =
+    22,500) and its 290th (m = 4,004, the same matrix's trailing block);
+    V, W, d, e and taus within b sqrt(m) eps (V, taus; W against its
+    largest entry; d, e against ||A||_2); D4 timed beside the plain
+    version, its bytes bound (the lower triangle of each column's
+    trailing square once) and its chain (the same grid on a block of b + 1
+    rows: 3 grid barriers a column and the sums between them), and the
+    plain loop's A v GEMVs alone (cuBLAS reading the whole square, which
+    the port no longer calls); then ``tridiagonalize`` at n = 4096 with
+    D4 against the plain panel's (||Q^T A Q - T|| / ||A||_2 and
+    ||Q^T Q - I|| at its level, one launch a panel), and
+    ``scalapack_select`` at n = 4096, k = 500 launching D4 once a panel.
 
 Every main path starts with every launch count at 0 and reads the counts
 right after; the kernel comparisons of phases 3, 6 and those after each
@@ -349,23 +365,24 @@ def capture(module, name, limit=None, keywords=False):
 
 def reset_launches():
     from eigenkernel_tpu_torch.ops import (backtransform, band, chase, dc,
-                                           jacobi, sturm, tridiag_solve,
-                                           wf_bt)
+                                           householder, jacobi, sturm,
+                                           tridiag_solve, wf_bt)
 
     for mod in (sturm, tridiag_solve, chase, wf_bt, backtransform, dc,
-                jacobi, band):
+                jacobi, band, householder):
         mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     from eigenkernel_tpu_torch.ops import (backtransform, band, chase, dc,
-                                           jacobi, sturm, tridiag_solve,
-                                           wf_bt)
+                                           householder, jacobi, sturm,
+                                           tridiag_solve, wf_bt)
 
     return {"sturm": sturm.LAUNCHES, "solve": tridiag_solve.LAUNCHES,
             "chase": chase.LAUNCHES, "wf_bt": wf_bt.LAUNCHES,
             "chase_bt": backtransform.LAUNCHES, "deflate": dc.LAUNCHES,
-            "pair_eigh": jacobi.LAUNCHES, "panel_qr": band.LAUNCHES}
+            "pair_eigh": jacobi.LAUNCHES, "panel_qr": band.LAUNCHES,
+            "panel_trd": householder.LAUNCHES}
 
 
 def time_ms(fn, reps: int, batches: int = 5) -> float:
@@ -2677,14 +2694,177 @@ def phase_panel_qr(dev) -> dict:
     return out
 
 
+N_TRD = 22500                  # phase 18: the benchmark's n
+# the starts of phase 18's panels of n = 22,500, b = 64: its first and its
+# 290th (m = 4,004)
+D4_STARTS = (0, 18496)
+
+
+def phase_panel_trd(dev) -> dict:
+    """Phase 18: D4 against its plain version on n = 22,500's panels,
+    timed; then ``tridiagonalize`` at n = 4096 with D4 against the plain
+    panel, and ``scalapack_select`` launching D4 once a panel."""
+    import numpy as np
+    import torch
+
+    from eigenkernel_tpu_torch import solve
+    from eigenkernel_tpu_torch.core.config import DEFAULT_BLOCK_SIZE
+    from eigenkernel_tpu_torch.ops import householder as hh
+
+    b = DEFAULT_BLOCK_SIZE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(18)
+    out = {"panels": []}
+
+    def outputs(m, dtype):
+        z = dict(dtype=dtype, device=dev)
+        return (torch.zeros(b, **z), torch.zeros(min(b, m - 1), **z),
+                torch.zeros(b, **z))
+
+    def norm2(a, iters=30):
+        """||A||_2 of symmetric A by power iteration (a lower bound that
+        converges from below; 30 steps on a random matrix: ~1 %)."""
+        x = torch.ones(a.shape[0], dtype=torch.float64, device=dev)
+        for _ in range(iters):
+            y = a.double() @ x if a.shape[0] <= 4096 else \
+                (a @ x.to(a.dtype)).double()
+            x = y / y.norm()
+        return float(y.norm())
+
+    # the plain loop's GEMV of each column, As[r:, r:] @ v (cuBLAS reads
+    # the whole square), alone
+    def gemvs(a):
+        v = torch.ones(a.shape[0], dtype=a.dtype, device=dev)
+        for j in range(b):
+            a[j + 1:, j + 1:] @ v[j + 1:]
+
+    gen = torch.Generator(device=dev)
+    for dtype in (torch.float64, torch.float32):
+        big = torch.randn((N_TRD, N_TRD), generator=gen.manual_seed(18),
+                          dtype=dtype, device=dev)
+        big = (big + big.T) * 0.5
+        for s0 in D4_STARTS:
+            a = big[s0:, s0:]
+            m = a.shape[0]
+            got = outputs(m, dtype)
+            gv, gw = hh.tridiag_panel(a, b, *got)
+            torch.cuda.synchronize()
+            ref = outputs(m, dtype)
+            rv, rw = hh.tridiag_panel_plain(a, b, *ref)
+            norm = norm2(a)
+            bar = panel_bar(m, b, dtype)
+            err = {"v_err": float((gv[:, :b] - rv[:, :b]).abs().max()),
+                   "w_err": float((gv[:, b:] - rv[:, b:]).abs().max()
+                                  / rv[:, b:].abs().max()),
+                   "d_err": float((got[0] - ref[0]).abs().max()) / norm,
+                   "e_err": float((got[1] - ref[1]).abs().max()) / norm,
+                   "tau_err": float((got[2] - ref[2]).abs().max())}
+            isz = a.element_size()
+            grid = hh.trd_plan(m, isz, sms)
+            tag = f"D4 m={m} b={b} {str(dtype)[6:]}"
+            print(f"  {tag}: grid {grid}, scratch "
+                  f"{hh.trd_scratch_words(m, b, grid, isz) * isz} B; "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+                  + f"; bar {bar:.3e}")
+            check(max(err.values()) <= bar,
+                  f"{tag} within b sqrt(m) eps of the plain panel")
+            again = outputs(m, dtype)
+            av, aw = hh.tridiag_panel(a, b, *again)
+            check(torch.equal(av, gv) and torch.equal(aw, gw) and all(
+                torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{tag}: two launches give the same bits")
+            entry = dict(err, m=m, b=b, dtype=str(dtype)[6:], grid=grid,
+                         bar=bar)
+            entry["ms"] = time_ms(lambda: hh.tridiag_panel(a, b, *again), 3)
+            entry["plain_ms"] = time_ms(
+                lambda: hh.tridiag_panel_plain(a, b, *ref), 1, batches=3)
+            entry["gemv_ms"] = time_ms(lambda: gemvs(a), 1, batches=3)
+            lower = sum((m - j - 1) * (m - j) // 2 for j in range(b))
+            entry["bound_ms"] = lower * a.element_size() / 3.35e12 * 1e3
+            # the chain: the same grid on a block of b + 1 rows
+            tiny, tiny_out = big[:b + 1, :b + 1], outputs(b + 1, dtype)
+            entry["chain_ms"] = time_ms(
+                lambda: hh._launch(tiny, b, *tiny_out, grid), 20)
+            print(f"    D4 {entry['ms']:.3f} ms, plain "
+                  f"{entry['plain_ms']:.3f} ms, the plain loop's GEMVs "
+                  f"{entry['gemv_ms']:.3f} ms, bound {entry['bound_ms']:.3f}"
+                  f" ms (bytes: the lower triangles), chain "
+                  f"{entry['chain_ms']:.3f} ms ({3 * b} barriers of {grid} "
+                  f"CTAs)")
+            out["panels"].append(entry)
+            del got, ref, again, gv, gw, rv, rw, av, aw
+        del big, a, tiny, tiny_out
+        torch.cuda.empty_cache()
+
+    # tridiagonalize at n = 4096: one D4 launch a panel, T and Q at the
+    # plain panel's level
+    n = N_BAND
+    panels = -(-n // b)
+    for dtype in (torch.float64, torch.float32):
+        a = torch.tensor(rng.standard_normal((n, n)), dtype=dtype,
+                         device=dev)
+        a = (a + a.T) * 0.5
+        eye = torch.eye(n, dtype=dtype, device=dev)
+        norm = norm2(a)
+
+        def quality(tri):
+            q = hh.apply_q(tri, eye)
+            t = hh.tridiag_matrix(tri.d, tri.e)
+            return (float((q.T @ a @ q - t).abs().max()) / norm,
+                    float((q.T @ q - eye).abs().max()))
+
+        hh.LAUNCHES = 0
+        res = quality(hh.tridiagonalize(a, b))
+        launches = hh.LAUNCHES
+        ms = time_ms(lambda: hh.tridiagonalize(a, b), 1, batches=3)
+        kernel = hh.tridiag_panel
+        hh.tridiag_panel = hh.tridiag_panel_plain
+        try:
+            ref = quality(hh.tridiagonalize(a, b))
+            plain_ms = time_ms(lambda: hh.tridiagonalize(a, b), 1,
+                               batches=1)
+        finally:
+            hh.tridiag_panel = kernel
+        floor = n * torch.finfo(dtype).eps
+        tag = f"tridiagonalize n={n} {str(dtype)[6:]}"
+        print(f"  {tag}: {launches} D4 launches for {panels} panels; "
+              f"||Q^T A Q - T|| / ||A|| {res[0]:.3e} (plain {ref[0]:.3e}), "
+              f"||Q^T Q - I|| {res[1]:.3e} (plain {ref[1]:.3e}); "
+              f"{ms:.1f} ms against the plain panel's {plain_ms:.1f} ms")
+        check(launches == panels, f"{tag}: D4 launched once a panel")
+        check(all(x <= max(4 * y, floor) for x, y in zip(res, ref)),
+              f"{tag}: T and Q at the plain panel's level")
+        out[f"tridiagonalize_{str(dtype)[6:]}"] = {
+            "launches": launches, "panels": panels, "residual": res[0],
+            "orth": res[1], "plain_residual": ref[0], "plain_orth": ref[1],
+            "ms": ms, "plain_ms": plain_ms}
+        del a, eye
+    # the selecting path launches D4 once a panel
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / 2
+    hh.LAUNCHES = 0
+    pairs = solve(a, solver="scalapack_select", n_vec=K_MAIN,
+                  dtype="float64", device=dev)
+    launches = hh.LAUNCHES
+    lam = torch.linalg.eigvalsh(torch.as_tensor(a, device=dev))[:K_MAIN]
+    err = float((pairs.values - lam).abs().max() / lam.abs().max())
+    print(f"  scalapack_select n={n} k={K_MAIN}: {launches} D4 launches for "
+          f"{panels} panels; eigenvalues {err:.3e} of max|lambda|")
+    check(launches == panels, "scalapack_select: D4 launched once a panel")
+    check(err <= 1e-12, "scalapack_select: eigenvalues of eigvalsh")
+    out["select"] = {"launches": launches, "panels": panels, "eig_err": err}
+    return out
+
+
 def main(argv) -> int:
     import torch
 
     cards_only = argv == ["--cards"]
     d3_only = argv == ["--d3"]
-    if argv and not (cards_only or d3_only):
-        print(f"chip_smoke: unknown arguments {argv} (none, --cards or "
-              f"--d3)", file=sys.stderr)
+    d4_only = argv == ["--d4"]
+    if argv and not (cards_only or d3_only or d4_only):
+        print(f"chip_smoke: unknown arguments {argv} (none, --cards, --d3 "
+              f"or --d4)", file=sys.stderr)
         return 2
 
     # phase 1: card
@@ -2717,6 +2897,15 @@ def main(argv) -> int:
         d3 = phase_panel_qr(dev)
         print(f"panel QR (D3): {time.time() - t0:.1f} s")
         print(json.dumps({"panel_qr": d3}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if d4_only:
+        t0 = time.time()
+        d4 = phase_panel_trd(dev)
+        print(f"tridiagonalize panel (D4): {time.time() - t0:.1f} s")
+        print(json.dumps({"panel_trd": d4}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2804,6 +2993,9 @@ def main(argv) -> int:
     t0 = time.time()
     d3 = phase_panel_qr(dev)
     print(f"panel QR (D3): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    d4 = phase_panel_trd(dev)
+    print(f"tridiagonalize panel (D4): {time.time() - t0:.1f} s")
     launches.update(chase=launches_two["chase"], wf_bt=launches_two["wf_bt"],
                     chase_bt=launches_b5["chase_bt"],
                     deflate=launches_dc["deflate"])
@@ -2977,6 +3169,27 @@ def main(argv) -> int:
                                     if e["dtype"] == "float32"),
                     "path_checks": d3["panels"][1:] + [
                         d3["to_band_float64"], d3["to_band_float32"]]})
+    # D4: the dlatrd panel of tridiagonalize on n = 22,500's first panel;
+    # not a TPU kernel (it replaces the JAX function's panel fori_loop,
+    # _panel_body)
+    d4_at = d4["panels"][0]
+    entries.append({"name": "panel_trd_kernel", "route": "cuda",
+                    "source": "eigenkernel_tpu_torch/csrc/panel_trd.cu",
+                    "replaces":
+                        "eigenkernel_tpu/ops/householder.py::_panel_body",
+                    "launches": launches.get("panel_trd", 0),
+                    "max_abs_err": d4_at["v_err"], "ms": d4_at["ms"],
+                    "plain_ms": d4_at["plain_ms"],
+                    "bound_ms": d4_at["bound_ms"], "bound_by": "bytes",
+                    "chain_ms": d4_at["chain_ms"],
+                    "library_ms": d4_at["gemv_ms"],
+                    "shape": f"m={d4_at['m']} b={d4_at['b']}",
+                    "dtype": "float64",
+                    "float32": next(e for e in d4["panels"]
+                                    if e["dtype"] == "float32"),
+                    "path_checks": d4["panels"][1:] + [
+                        d4["tridiagonalize_float64"],
+                        d4["tridiagonalize_float32"], d4["select"]]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

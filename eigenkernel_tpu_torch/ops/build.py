@@ -81,6 +81,13 @@ _SIGNATURES = {
         "ek_panel_qr_f32": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
         "ek_panel_qr_smem": (_I, _I, _I),
     },
+    "panel_trd.cu": {
+        "ek_panel_trd_f64": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P),
+        "ek_panel_trd_f32": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                             _P),
+        "ek_panel_trd_scratch": (_I, _I, _I, _I),
+    },
     "pair_jacobi.cu": {
         "ek_pair_jacobi_f64": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
         "ek_pair_jacobi_f32": (_P, _I, _I, _I, _P, _P, _P, _P, _P),

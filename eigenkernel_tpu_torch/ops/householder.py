@@ -11,9 +11,12 @@ columns runs its Householder steps with the panel's pending updates kept
 as ``V`` and ``W = tau (A v - corrections)`` columns, then the trailing
 block, which shrinks panel by panel, takes one rank-2b update
 ``A22 -= [V W] [W V]^T``.  The last panel may be narrower than ``b``.
-(The JAX package's masked full-size panels and bucketed recursion exist
-because every XLA shape compiles separately; eager PyTorch has no such
-cost.)
+Each panel's steps are :func:`tridiag_panel`: on a CUDA tensor one launch
+of kernel D4 (``csrc/panel_trd.cu``, which reads only the trailing
+block's lower triangle; ``LAUNCHES`` counts them, one a panel), on a CPU
+tensor the plain :func:`tridiag_panel_plain`, D4's model.  (The JAX
+package's masked full-size panels and bucketed recursion exist because
+every XLA shape compiles separately; eager PyTorch has no such cost.)
 
 ``apply_q`` applies groups of panels in reverse with the compact-WY
 identity ``H_s ... H_{s+g-1} = I - V T V^T``,
@@ -44,7 +47,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from eigenkernel_tpu_torch.obs import events
+from eigenkernel_tpu_torch.ops import build
 from eigenkernel_tpu_torch.parallel import mesh as pm
+
+
+LAUNCHES = 0        # launches of D4 by tridiag_panel (CPU tensors add none)
+
+UNIT_ROWS = 16      # csrc/panel_trd.cu kHigh: rows of a unit of A v
+STRIP_BYTES = 2048  # csrc/panel_trd.cu kWide * itemsize: a strip's width
+UNITS_MIN = 4       # a D4 CTA takes at least this many units where it can
+MAX_WIDTH = 256     # csrc/panel_trd.cu kMaxB: the widest panel
+
+_FN = {torch.float64: "ek_panel_trd_f64", torch.float32: "ek_panel_trd_f32"}
 
 
 class TridiagResult(NamedTuple):
@@ -108,7 +122,10 @@ def tridiagonalize(a, block: int = 64,
     n = a.shape[0]
     dtype, dev = a.dtype, a.device
     b = max(1, min(block, n))
-    A = a.clone()
+    # row-major, whatever a's layout (the generalized reductions hand over
+    # a transposed one): each panel's trailing block then has unit column
+    # stride, as D4 reads it
+    A = a.clone(memory_format=torch.contiguous_format)
     d = torch.zeros(n, dtype=dtype, device=dev)
     e = torch.zeros(max(n - 1, 0), dtype=dtype, device=dev)
     taus = torch.zeros(n, dtype=dtype, device=dev)
@@ -116,37 +133,132 @@ def tridiagonalize(a, block: int = 64,
     for s in range(0, n, b):
         bw = min(b, n - s)
         As = A[s:, s:]                     # trailing block, a view of A
-        m = n - s
         with events.span("tridiagonalize:panel"):
-            Vp = torch.zeros((m, bw), dtype=dtype, device=dev)
-            Wp = torch.zeros((m, bw), dtype=dtype, device=dev)
-            for j in range(bw):
-                c = s + j
-                # column j with the panel's pending updates, rows j..m-1
-                col = As[j:, j] - Vp[j:, :j] @ Wp[j, :j] \
-                    - Wp[j:, :j] @ Vp[j, :j]
-                d[c] = col[0]
-                if c == n - 1:
-                    break
-                head, tail, tau, beta = _householder(col[2:], col[1])
-                e[c] = beta
-                taus[c] = tau
-                r = j + 1                  # pivot row; v vanishes above it
-                v = torch.cat([head.reshape(1), tail])
-                Vr, Wr = Vp[r:, :j], Wp[r:, :j]
-                # w = tau (A v - V (W^T v) - W (V^T v)) - (tau/2)(w^T v) v
-                av = As[r:, r:] @ v - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
-                w = tau * av
-                w = w - (0.5 * tau * (w @ v)) * v
-                Vp[r:, j] = v
-                Wp[r:, j] = w
+            vw, wv = tridiag_panel(As, bw, d[s:s + bw], e[s:s + bw],
+                                   taus[s:s + bw])
         with events.span("tridiagonalize:update"):
-            if bw < m:
-                vw = torch.cat([Vp[bw:], Wp[bw:]], dim=1)
-                wv = torch.cat([Wp[bw:], Vp[bw:]], dim=1)
-                As[bw:, bw:].addmm_(vw, wv.T, alpha=-1.0)
-            V[s:, s:s + bw] = Vp
+            if bw < n - s:
+                As[bw:, bw:].addmm_(vw[bw:], wv[bw:].T, alpha=-1.0)
+            V[s:, s:s + bw] = vw[:, :bw]
     return TridiagResult(d=d, e=e, V=V, taus=taus)
+
+
+def tridiag_panel_plain(As: torch.Tensor, bw: int, d: torch.Tensor,
+                        e: torch.Tensor, taus: torch.Tensor):
+    """D4's model: the dlatrd steps of the first ``bw`` columns of the
+    symmetric trailing block ``As`` (m, m; not modified), on any device.
+    Writes ``d`` (bw), ``e`` (min(bw, m - 1)) and ``taus`` (bw) in place;
+    the column j = m - 1, which closes the matrix, writes ``d[j]`` only.
+    Returns ``(vw, wv)``, the (m, 2 bw) ``[V W]`` and ``[W V]`` of the
+    rank-2b update: column j of V is v_j (zero above row j + 1) and of W
+    is ``w_j = tau (A v - V (W^T v) - W (V^T v)) - (tau/2)(w^T v) v``."""
+    m = As.shape[0]
+    Vp = torch.zeros((m, bw), dtype=As.dtype, device=As.device)
+    Wp = torch.zeros((m, bw), dtype=As.dtype, device=As.device)
+    for j in range(bw):
+        # column j with the panel's pending updates, rows j..m-1
+        col = As[j:, j] - Vp[j:, :j] @ Wp[j, :j] - Wp[j:, :j] @ Vp[j, :j]
+        d[j] = col[0]
+        if j == m - 1:
+            break
+        head, tail, tau, beta = _householder(col[2:], col[1])
+        e[j] = beta
+        taus[j] = tau
+        r = j + 1                          # pivot row; v vanishes above it
+        v = torch.cat([head.reshape(1), tail])
+        Vr, Wr = Vp[r:, :j], Wp[r:, :j]
+        av = As[r:, r:] @ v - Vr @ (Wr.T @ v) - Wr @ (Vr.T @ v)
+        w = tau * av
+        w = w - (0.5 * tau * (w @ v)) * v
+        Vp[r:, j] = v
+        Wp[r:, j] = w
+    return torch.cat([Vp, Wp], dim=1), torch.cat([Wp, Vp], dim=1)
+
+
+def trd_units(m: int, itemsize: int):
+    """``(strips, units)`` of D4's walk of an (m, m) block's lower
+    triangle (``panel_trd.cu::strip_start``): strips of ``STRIP_BYTES``,
+    each from the first unit of ``UNIT_ROWS`` rows the diagonal crosses
+    down."""
+    ratio = STRIP_BYTES // itemsize // UNIT_ROWS
+    nu = -(-m // UNIT_ROWS)
+    ns = -(-nu // ratio)
+    return ns, ns * nu - ratio * ns * (ns - 1) // 2
+
+
+def trd_plan(m: int, itemsize: int = 8, sms: int = 132) -> int:
+    """CTAs of D4 on an (m, m) trailing block: one an SM, and no more than
+    leave each at least ``UNITS_MIN`` units of the lower triangle (fewer
+    CTAs keep a small panel's barriers cheap)."""
+    return max(1, min(sms, -(-trd_units(m, itemsize)[1] // UNITS_MIN)))
+
+
+def trd_scratch_words(m: int, bw: int, grid: int, itemsize: int = 8) -> int:
+    """Words of D4's scratch (``panel_trd.cu::scratch_words``): a slot of
+    ``UNIT_ROWS`` words a unit and of a strip's width a run, the column,
+    w' and y (m each), and the CTAs' partial sums."""
+    ns, units = trd_units(m, itemsize)
+    return (UNIT_ROWS * units + STRIP_BYTES // itemsize * (ns + grid)
+            + 3 * m + grid * (2 + 2 * bw))
+
+
+def tridiag_panel(As: torch.Tensor, bw: int, d: torch.Tensor,
+                  e: torch.Tensor, taus: torch.Tensor):
+    """The dlatrd steps of the panel of ``bw`` columns of the trailing
+    block ``As`` (m, m; not modified), as :func:`tridiag_panel_plain`
+    returns and writes them.  A CUDA tensor launches D4 once, which reads
+    only the lower triangle of ``As``; a CPU tensor runs
+    :func:`tridiag_panel_plain`."""
+    if As.dtype not in _FN:
+        raise TypeError(f"tridiag_panel: dtype {As.dtype} not "
+                        f"float32/float64")
+    m = As.shape[0] if As.dim() == 2 else 0
+    if As.dim() != 2 or As.shape[1] != m or not 1 <= bw <= m:
+        raise ValueError(f"tridiag_panel: a square block and 1 <= bw <= m "
+                         f"expected, got {tuple(As.shape)}, bw = {bw}")
+    if As.device.type == "cpu":
+        return tridiag_panel_plain(As, bw, d, e, taus)
+    if As.device.type != "cuda":
+        raise ValueError(f"tridiag_panel: unsupported device {As.device}")
+    sms = torch.cuda.get_device_properties(As.device).multi_processor_count
+    return _launch(As, bw, d, e, taus, trd_plan(m, As.element_size(), sms))
+
+
+def _launch(As: torch.Tensor, bw: int, d: torch.Tensor, e: torch.Tensor,
+            taus: torch.Tensor, grid: int):
+    """D4 on the CUDA block ``As`` with ``grid`` CTAs; any grid that can be
+    co-resident (the card tests and ``chip_smoke.py`` take others than
+    :func:`trd_plan`'s)."""
+    global LAUNCHES
+    m = As.shape[0]
+    if bw > MAX_WIDTH:
+        raise build.KernelLaunchError(
+            f"tridiag_panel: a panel of {bw} columns, more than "
+            f"{MAX_WIDTH}")
+    if As.stride(1) != 1:                 # tridiagonalize's blocks have it
+        raise ValueError(f"tridiag_panel: a block of unit column stride "
+                         f"expected, got strides {As.stride()}")
+    for x, size in ((d, bw), (e, min(bw, m - 1)), (taus, bw)):
+        if x.shape != (size,) or x.dtype != As.dtype or \
+                x.device != As.device or (size > 1 and x.stride(0) != 1):
+            raise ValueError(f"tridiag_panel: an output of {size} "
+                             f"contiguous {As.dtype} on {As.device} "
+                             f"expected, got {tuple(x.shape)}")
+    ld = As.stride(0) if m > 1 else 1
+    vec = As.data_ptr() % 16 == 0 and ld * As.element_size() % 16 == 0
+    vt = torch.empty((3 * bw, m), dtype=As.dtype, device=As.device)
+    scratch = torch.empty(trd_scratch_words(m, bw, grid, As.element_size()),
+                          dtype=As.dtype, device=As.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=As.device)
+    name = _FN[As.dtype]
+    stream = torch.cuda.current_stream(As.device).cuda_stream
+    status = getattr(build.library(), name)(
+        As.data_ptr(), ld, m, bw, grid, int(vec), vt.data_ptr(),
+        d.data_ptr(), e.data_ptr(), taus.data_ptr(), scratch.data_ptr(),
+        bar.data_ptr(), stream)
+    build.check(status, name)
+    LAUNCHES += 1
+    return vt[:2 * bw].T, vt[bw:].T
 
 
 def _tridiagonalize_grid(a: pm.DistMatrix, block: int,

@@ -32,7 +32,9 @@ def _jax_block(n):
 def test_tridiagonalize_matches_jax(n):
     a = _sym(n, n)
     ref = jhh.tridiagonalize(jnp.asarray(a), block=_jax_block(n))
+    launches = hh.LAUNCHES
     tri = hh.tridiagonalize(torch.tensor(a), block=64)
+    assert hh.LAUNCHES == launches             # a CPU tensor launches no D4
     scale = np.linalg.norm(a)
     assert tri.d.shape == (n,) and tri.e.shape == (max(n - 1, 0),)
     assert np.abs(tri.d.numpy() - np.asarray(ref.d)).max() <= 1e-12 * scale
